@@ -1,0 +1,242 @@
+"""Inference CLI: ``python -m stemseg_tpu_torch.inference.main CKPT.pth -o DIR
+--dataset davis [--device cuda]``.
+
+Per sequence: frame loading -> sliding-window engine (backbone + 3D heads)
+-> per-window clustering + cross-window chaining -> DAVIS PNG writer, with
+the reference's fps report (model, clustering + postprocessing, overall).
+Frame I/O and output writing stay out of the timers; each timed phase ends
+in a device synchronise, so the report holds device time.
+
+Config resolution: ``config.yaml`` beside the checkpoint if present, else
+the ``davis_2`` preset; CLI overrides for the input dims and the minimum
+seediness. Weights load from a reference ``.pth`` state dict.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from stemseg_tpu_torch.config import Config, load_config, load_preset, merge
+from stemseg_tpu_torch.utils.timer import Timer
+
+DATASET_PRESETS = {"davis": "davis_2"}
+FRAME_READERS = 4  # threads reading JPEGs
+
+
+def load_inference_cfg(model_path: str, dataset: str, min_dim: Optional[int],
+                       max_dim: Optional[int],
+                       min_seediness_prob: Optional[float]) -> Config:
+    cfg_file = os.path.join(os.path.dirname(model_path), "config.yaml")
+    if os.path.exists(cfg_file):
+        print(f"Loading config from {cfg_file}")
+        cfg = load_config(cfg_file)
+    else:
+        if dataset not in DATASET_PRESETS:
+            raise ValueError(f"Invalid dataset {dataset!r}; this port runs 'davis'")
+        print(f"Loading default preset {DATASET_PRESETS[dataset]}")
+        cfg = load_preset(DATASET_PRESETS[dataset])
+
+    # input-dim overrides keep the aspect limit ratio
+    if min_dim or max_dim:
+        ratio = cfg.input.max_dim / cfg.input.min_dim
+        if min_dim and max_dim:
+            new_min, new_max = min_dim, max_dim
+        elif min_dim:
+            new_min, new_max = min_dim, int(round(min_dim * ratio))
+        else:
+            new_min, new_max = int(round(max_dim / ratio)), max_dim
+        cfg = merge(cfg, {"input": {"min_dim": new_min, "max_dim": new_max}})
+        print(f"Network input image dimension limits: {new_min}, {new_max}")
+
+    if min_seediness_prob:
+        cfg = merge(cfg, {"clustering": {"min_seediness_prob": min_seediness_prob}})
+    return cfg
+
+
+def load_model(cfg: Config, model_path: str, device="cuda"):
+    """Build the model on ``device`` and load a reference ``.pth``."""
+    from stemseg_tpu_torch.models import build_model, load_state_dict_file
+
+    if not model_path.endswith(".pth"):
+        raise ValueError("this port loads reference .pth state dicts; the JAX "
+                         "package's .ckpt format is not read yet")
+    model = build_model(cfg, device=device)
+    model.load_state_dict(load_state_dict_file(model_path))
+    return model
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class TrackGenerator:
+    """Per-sequence orchestration over the streaming engine and the online
+    chainer."""
+
+    def __init__(self, cfg: Config, dataset: str, model, output_generator,
+                 max_tracks: int, seediness_thresh: float = 0.25,
+                 frame_overlap: int = -1):
+        from stemseg_tpu_torch.inference.chainer import OnlineChainer
+        from stemseg_tpu_torch.inference.clustering import ClusterParams, cluster_window
+        from stemseg_tpu_torch.inference.engine import InferenceEngine
+        from stemseg_tpu_torch.models.embedding_utils import get_nb_free_dims
+
+        if dataset != "davis":
+            raise ValueError(f"Invalid dataset {dataset!r}; this port runs 'davis'")
+        if cfg.training.loss_at_full_res:
+            raise NotImplementedError("full-resolution clustering is not ported yet")
+        self.cfg = cfg
+        self.output_generator = output_generator
+        self.max_tracks = max_tracks
+        self.seediness_thresh = seediness_thresh
+        self.frame_overlap = (frame_overlap if frame_overlap > 0
+                              else cfg.data.davis.inference_frame_overlap)
+        self.engine = InferenceEngine(cfg, model)
+        self.device = self.engine.device
+
+        ccfg = cfg.clustering
+        self.cluster_params = ClusterParams(
+            primary_prob_thresh=ccfg.primary_prob_threshold,
+            secondary_prob_thresh=ccfg.secondary_prob_threshold,
+            min_seediness_prob=ccfg.min_seediness_prob,
+            max_instances=ccfg.max_instances,
+            n_free_dims=get_nb_free_dims(cfg.model.embedding_dim_mode),
+            free_dim_stds=tuple(cfg.training.losses.embedding.free_dim_stds),
+            secondary_assignment=ccfg.secondary_assignment)
+
+        def cluster_fn(emb, bw, seed, fg_mask, label_start):
+            return cluster_window(emb, bw, seed, fg_mask, self.cluster_params,
+                                  label_start)
+
+        self.chainer = OnlineChainer(cluster_fn, max_instances=ccfg.max_instances)
+        self.total_frames_processed = 0
+
+    @Timer.exclude_duration("inference", "postprocessing")
+    def _load_frames(self, sequence):
+        """Raw uint8 BGR frames, read by a thread pool over cv2."""
+        import cv2
+        from concurrent.futures import ThreadPoolExecutor
+
+        def read(path):
+            im = cv2.imread(path, cv2.IMREAD_COLOR)
+            if im is None:
+                raise ValueError(f"No image found at path: {path}")
+            return im
+
+        with ThreadPoolExecutor(max_workers=FRAME_READERS) as pool:
+            images = list(pool.map(read, sequence.frame_paths()))
+        return np.stack(images), images[0].shape[:2]
+
+    @Timer.log_duration("inference")
+    def do_inference(self, frames: np.ndarray, image_hw):
+        from stemseg_tpu_torch.inference.windows import get_subsequence_frames
+        from stemseg_tpu_torch.structures.geometry import compute_resize_params
+
+        h0, w0 = image_hw
+        new_w, new_h, _ = compute_resize_params(
+            (w0, h0), self.cfg.input.min_dim, self.cfg.input.max_dim)
+        windows = get_subsequence_frames(
+            frames.shape[0], self.cfg.input.num_frames, self.frame_overlap)
+        out = self.engine.infer_sequence(
+            frames, windows, resize_hw=(new_h, new_w),
+            seediness_fg_threshold=self.seediness_thresh)
+        _synchronize(self.device)
+        return out
+
+    @Timer.log_duration("postprocessing")
+    def do_clustering(self, out):
+        with torch.no_grad():
+            result = self.chainer.process(out["fg_masks"], out["windows"])
+        _synchronize(self.device)
+        return result
+
+    def process_sequence(self, sequence, max_tracks: int):
+        frames, image_hw = self._load_frames(sequence)
+        return self._process_loaded(sequence, frames, image_hw, max_tracks)
+
+    def _process_loaded(self, sequence, frames: np.ndarray, image_hw, max_tracks: int):
+        """One sequence of raw uint8 ``[T, H, W, 3]`` BGR frames through the
+        engine, the chainer and the writer. Returns the chainer's output:
+        (labels, counts, lifetimes, per-window ClusterResults)."""
+        out = self.do_inference(frames, image_hw)
+        result = self.do_clustering(out)
+        labels, counts, lifetimes, _ = result
+        self.output_generator.process_sequence(
+            sequence, labels, counts, lifetimes, None, mask_scale=4,
+            max_tracks=max_tracks, min_dim=self.cfg.input.min_dim,
+            max_dim=self.cfg.input.max_dim)
+        self.total_frames_processed += len(frames)
+        return result
+
+    def start(self, sequences, seqs_to_process: Optional[List[str]] = None):
+        todo = [s for s in sequences
+                if not seqs_to_process or str(s.id) in seqs_to_process]
+        for i, sequence in enumerate(todo):
+            print(f"Performing inference for sequence {i + 1}/{len(todo)}")
+            self.process_sequence(sequence, self.max_tracks)
+        self.print_fps_report()
+
+    def fps_report(self) -> List[str]:
+        inf = max(Timer.get_duration("inference"), 1e-9)
+        post = max(Timer.get_duration("postprocessing"), 1e-9)
+        n = self.total_frames_processed
+        return [f"Model inference speed: {n / inf:.3f} fps",
+                f"Clustering and postprocessing speed: {n / post:.3f} fps",
+                f"Overall speed: {n / max(Timer.get_durations_sum(), 1e-9):.3f} fps"]
+
+    def print_fps_report(self):
+        print("----------------------------------------------------")
+        for line in self.fps_report():
+            print(line)
+        print("----------------------------------------------------")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="STEm-Seg inference (PyTorch / CUDA)")
+    parser.add_argument("model_path")
+    parser.add_argument("--output_dir", "-o", required=False)
+    parser.add_argument("--seqs", nargs="*", required=False)
+    parser.add_argument("--dataset", "-d", required=True, choices=list(DATASET_PRESETS))
+    parser.add_argument("--max_tracks", type=int, required=False)
+    parser.add_argument("--frame_overlap", "-fo", type=int, default=-1)
+    parser.add_argument("--seediness_thresh", "-st", type=float, default=0.25)
+    parser.add_argument("--min_dim", type=int, required=False)
+    parser.add_argument("--max_dim", type=int, required=False)
+    parser.add_argument("--min_seediness_prob", "-msp", type=float, required=False)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; 'cpu' runs the plain versions of "
+                             "the kernels")
+    args = parser.parse_args(argv)
+
+    from stemseg_tpu_torch.data.parsers import parse_generic_video_dataset
+    from stemseg_tpu_torch.data.paths import DavisUnsupervisedPaths
+    from stemseg_tpu_torch.inference.output_utils import DavisOutputGenerator
+
+    cfg = load_inference_cfg(args.model_path, args.dataset, args.min_dim,
+                             args.max_dim, args.min_seediness_prob)
+    output_dir = args.output_dir or os.path.join(
+        os.path.dirname(args.model_path), "inference")
+    if not os.path.isabs(output_dir):
+        output_dir = os.path.join(os.path.dirname(args.model_path), output_dir)
+    os.makedirs(output_dir, exist_ok=True)
+
+    sequences, _ = parse_generic_video_dataset(
+        DavisUnsupervisedPaths.trainval_base_dir(), DavisUnsupervisedPaths.val_vds_file())
+    model = load_model(cfg, args.model_path, device=args.device)
+    output_generator = DavisOutputGenerator(output_dir, device=args.device)
+    max_tracks = args.max_tracks or cfg.data.davis.max_inference_tracks
+    generator = TrackGenerator(cfg, args.dataset, model, output_generator, max_tracks,
+                               seediness_thresh=args.seediness_thresh,
+                               frame_overlap=args.frame_overlap)
+    generator.start(sequences, args.seqs)
+    print(f"Results saved to {output_dir}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""DAVIS output writer: indexed-palette PNGs in the official eval layout.
+
+Tracks are ranked by lifetime and capped at ``max_tracks``; per frame the
+kept instance masks are lifted to the original image dims and condensed
+into one uint8 index map where LATER kept instances overwrite earlier ones,
+written as ``results/<seq>/00000.png`` with the Pascal-VOC palette.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from stemseg_tpu_torch.inference.chainer import OUTLIER_LABEL
+from stemseg_tpu_torch.inference.output_utils.common import (
+    masks_to_original_dims,
+    select_instances_to_keep,
+)
+from stemseg_tpu_torch.utils.device import resolve_device
+from stemseg_tpu_torch.utils.vis import create_color_map
+
+
+class DavisOutputGenerator:
+    def __init__(self, output_dir: str, device="cuda"):
+        """:param device: where the mask resize chain runs"""
+        self.results_output_dir = os.path.join(output_dir, "results")
+        self.device = resolve_device(device)
+
+    def process_sequence(self, sequence, track_labels: np.ndarray,
+                         instance_pt_counts: Dict[int, int],
+                         instance_lifetimes: Dict[int, int],
+                         category_masks, mask_scale: int, max_tracks: int,
+                         min_dim: int, max_dim: int) -> List[int]:
+        """:param sequence: object with ``id`` and ``image_dims`` (h, w)
+        :param track_labels: dense [T, h, w] int32 global labels (-1 outlier)
+        :param category_masks: unused for DAVIS
+        :return: the kept track ids, PNG index n + 1 for the n-th
+        """
+        from PIL import Image
+
+        if max_tracks >= 256:
+            raise ValueError("DAVIS PNGs index at most 255 tracks")
+        image_dims = tuple(sequence.image_dims)
+        kept = select_instances_to_keep(instance_lifetimes, OUTLIER_LABEL, max_tracks)
+        cmap = create_color_map().flatten()
+        labels_dev = torch.from_numpy(np.ascontiguousarray(track_labels)).to(self.device)
+        kept_dev = torch.tensor(kept, dtype=labels_dev.dtype,
+                                device=self.device).view(-1, 1, 1)
+
+        seq_results_dir = os.path.join(self.results_output_dir, str(sequence.id))
+        os.makedirs(seq_results_dir, exist_ok=True)
+        for t in range(track_labels.shape[0]):
+            condensed = np.zeros(image_dims, np.uint8)
+            if kept:
+                full = masks_to_original_dims(
+                    labels_dev[t][None] == kept_dev, mask_scale, image_dims,
+                    min_dim, max_dim).cpu().numpy()
+                for n in range(len(kept)):  # later kept ids overwrite
+                    condensed[full[n]] = n + 1
+            img = Image.fromarray(condensed)
+            img.putpalette(cmap)
+            img.save(os.path.join(seq_results_dir, f"{t:05d}.png"))
+        return kept
