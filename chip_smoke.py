@@ -6,12 +6,19 @@ which raises on failure (the script then exits non-zero):
 
 1. device: name, power limit (nvidia-smi) and the TF32 flags;
 2. build: ``nvcc`` builds the CUDA sources of the checkout;
-3. kernels: ``cluster_points_single`` (207,360 points) and
-   ``cluster_points_tiled`` (878,592 points) against their plain PyTorch
-   version on the same mixture-of-Gaussians inputs, both secondary modes
-   and one case that exhausts K: labels exact except knife-edge points
-   (plain ``exp(-0.5 d)`` within 1e-6 of a threshold, at most 0.01 %),
-   meta equal; kernel time, plain time and bound;
+3. kernels: ``cluster_points_single`` and ``cluster_points_tiled`` at
+   207,360 and 878,592 points (and the tiled one at 3,500,000, beyond its
+   on-chip state) against their plain PyTorch version on the same
+   mixture-of-Gaussians inputs, both secondary modes and one case that
+   exhausts K: labels exact except knife-edge points (plain
+   ``exp(-0.5 d)`` within 1e-6 of a threshold, at most 0.01 %), meta
+   equal; edge cases exact; the single kernel refuses 3,500,000 points.
+   At the main-path shapes (single 207,360, tiled 878,592, and single at
+   878,592 for the crossover): CUDA-event time, the profiler's device time
+   and kernel list (one clustering kernel per call, nothing else), host
+   time per call, cold-L2 time, executed iterations, the sync floor (the
+   kernels' exchanges alone), plain time and bound. The wrapper's on-chip
+   capacity must equal the CUDA library's for every E;
 4. main path A: the ``davis_2`` preset at full width (R-101-FPN, 16-frame
    windows, 704x1248 network input) on a 26-frame 480x854 sequence through
    ``TrackGenerator._process_loaded`` into the DAVIS writer; every window
@@ -43,6 +50,7 @@ PEAK_FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 KNIFE_EPS = 1e-6
 MAX_KNIFE_FRACTION = 1e-4
 MAIN_SEED = 0
+BEYOND_ON_CHIP = 3_500_000  # over both kernels' on-chip capacity at E = 4
 
 
 def log(*args):
@@ -100,14 +108,20 @@ def mixture_points(p, seed, e=4, n_free=2, n_clusters=8, noise=0.05):
     return emb, full_bw, seed_v, fg
 
 
-def time_cuda(fn, n, warmup=2):
-    """Mean milliseconds per call of ``fn`` on the current stream."""
+def time_cuda(fn, n, warmup=2, queue_first=False):
+    """Mean milliseconds per call of ``fn`` on the current stream. With
+    ``queue_first`` (for ``fn`` that never waits for the device) the device
+    first spins for about 5 ms, so that the host has queued all n calls
+    before the first starts, and a host slower than the device does not
+    show in the time."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue_first:
+        torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(n):
         fn()
@@ -142,19 +156,22 @@ def primary_walk(emb, bw, fg, meta, primary, secondary):
 
 def check_edge_cases(ops, name):
     """The loop running out of points before K (key 0 must stop it), a
-    window without fg points, and K = 1, against the plain version."""
+    window without fg points, K = 1, and the same top seediness in two
+    blocks (the smaller index wins), against the plain version."""
     import numpy as np
     import torch
 
     emb, bw, seed, fg = mixture_points(2000, seed=7, n_clusters=2, noise=0.01)
-    cases = (("all_taken", np.ones_like(bw), np.ones_like(fg), 20, 0.0),
-             ("all_background", bw, np.zeros_like(fg), 20, 0.0),
-             ("k1", bw, fg, 1, 0.8))
-    for case, case_bw, case_fg, k, min_seed in cases:
-        tensors = [torch.from_numpy(x).cuda() for x in (emb, case_bw, seed, case_fg)]
+    tie_seed, tie_fg = seed.copy(), fg.copy()
+    tie_seed[[100, 1500]], tie_fg[[100, 1500]] = 0.9995, True  # in two blocks
+    cases = (("all_taken", np.ones_like(bw), np.ones_like(fg), seed, 20, 0.0),
+             ("all_background", bw, np.zeros_like(fg), seed, 20, 0.0),
+             ("k1", bw, fg, seed, 1, 0.8),
+             ("tie", bw, tie_fg, tie_seed, 20, 0.8))
+    for case, case_bw, case_fg, case_seed, k, min_seed in cases:
+        tensors = [torch.from_numpy(x).cuda() for x in (emb, case_bw, case_seed, case_fg)]
         for mode in ("reference", "nearest"):
-            kwargs = dict(e_dims=4, max_instances=k, primary=0.5, secondary=0.3,
-                          min_seediness=min_seed, reference_secondary=mode == "reference")
+            kwargs = main_kwargs(k, mode, min_seed)
             labels, meta = getattr(ops, name)(*tensors, **kwargs)
             ref_labels, ref_meta = ops.cluster_points_reference(*tensors, **kwargs)
             if not (torch.equal(labels, ref_labels) and torch.equal(meta, ref_meta)):
@@ -162,64 +179,226 @@ def check_edge_cases(ops, name):
         n_valid = int((meta[:, -1] > 0.5).sum())
         if case == "all_taken" and not (n_valid < k and bool((labels >= 0).all())):
             raise AssertionError(f"{name} all_taken: {n_valid} clusters, points left")
+        if case == "tie" and not torch.equal(meta[0, :4], tensors[0][100]):
+            raise AssertionError(f"{name} tie: the first seed is not the smaller index")
         log(f"  {name} edge case {case}: {n_valid} clusters, exact in both modes")
+
+
+def cuda_inputs(p):
+    import torch
+
+    return tuple(torch.from_numpy(x).cuda() for x in mixture_points(p, seed=p % 1000))
+
+
+def main_kwargs(k=20, mode="reference", min_seed=0.8):
+    return dict(e_dims=4, max_instances=k, primary=0.5, secondary=0.3,
+                min_seediness=min_seed, reference_secondary=mode == "reference")
+
+
+def check_exact(ops, name, tensors):
+    """Both secondary modes at K = 20 and the reference mode at K = 3
+    against the plain version: meta equal, labels equal except knife-edge
+    points. Returns (max abs meta error, label mismatches, available points
+    per active iteration of the K = 20 reference run)."""
+    import torch
+
+    p = tensors[0].shape[0]
+    wrapper = getattr(ops, name)
+    err_max, mism_total, n_iter_avail = 0.0, 0, None
+    for mode, k in (("reference", 20), ("nearest", 20), ("reference", 3)):
+        kwargs = main_kwargs(k, mode)
+        labels, meta = wrapper(*tensors, **kwargs)
+        ref_labels, ref_meta = ops.cluster_points_reference(*tensors, **kwargs)
+        torch.cuda.synchronize()
+        err = float((meta - ref_meta).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"{name} P={p} {mode} K={k}: meta differs by {err}")
+        n_valid = int((meta[:, -1] > 0.5).sum())
+        if n_valid < min(k, 3):
+            raise AssertionError(f"{name} P={p} {mode} K={k}: only {n_valid} clusters formed")
+        n_avail, knife = primary_walk(tensors[0], tensors[1], tensors[3], ref_meta, 0.5, 0.3)
+        mism = labels != ref_labels
+        n_mism = int(mism.sum())
+        if bool((mism & ~knife).any()) or n_mism > MAX_KNIFE_FRACTION * p:
+            raise AssertionError(f"{name} P={p} {mode} K={k}: {n_mism} label mismatches, "
+                                 f"{int((mism & ~knife).sum())} not on a knife edge")
+        log(f"  {name} P={p} {mode:9s} K={k:2d}: {n_valid} clusters, "
+            f"{n_mism} knife-edge label mismatches, meta max abs err {err}")
+        err_max, mism_total = max(err_max, err), mism_total + n_mism
+        if (mode, k) == ("reference", 20):
+            n_iter_avail = n_avail
+    return err_max, mism_total, n_iter_avail
+
+
+def device_kernels(fn, n, attempts=2):
+    """Kernels the device ran per call of ``fn`` (torch.profiler): by name,
+    (launches per call, device ms per call). The profiler has been seen to
+    return no device event at all for a whole session on the H100; such a
+    session is profiled again, and raises after ``attempts``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                count, us = by_name.get(evt.name, (0, 0.0))
+                by_name[evt.name] = (count + 1, us + evt.time_range.elapsed_us())
+        if by_name:
+            return {name: (count / n, us / n / 1e3) for name, (count, us) in by_name.items()}
+        log(f"  profiler: no device event in session {attempt + 1} of {attempts}")
+    raise RuntimeError(f"torch.profiler recorded no device event in {attempts} sessions")
+
+
+def host_ms_per_call(fn, n):
+    """Host wall time per call, the device's queue never full (no
+    synchronise between the calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def cold_l2_ms(fn, n):
+    """Median ms of one call after writing over 512 MB (10x the L2; the
+    write also covers the host's time to queue the call)."""
+    import torch
+
+    flush = torch.empty(128 * 2**20, dtype=torch.float32, device="cuda")
+    pairs = []
+    for _ in range(n):
+        flush.fill_(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in pairs)[n // 2]
+
+
+def kernel_split(ops, name, p, tensors=None):
+    """Where one wrapper call's time goes at ``p`` points (K = 20, reference
+    mode): CUDA-event ms over 20 calls queued before the first starts, the
+    device time of the clustering kernels (torch.profiler; any other kernel
+    is listed but not counted), host ms per call, cold-L2 ms and the executed iterations (the
+    active ones plus the one that stopped the loop). Needs nothing but the
+    wrappers, so it also measures older trees of the port."""
+    tensors = cuda_inputs(p) if tensors is None else tensors
+    kw = main_kwargs()
+    wrapper = getattr(ops, name)
+    fn = lambda: wrapper(*tensors, **kw)  # noqa: E731
+    _, meta = fn()
+    n_active = int((meta[:, -1] > 0.5).sum())
+    per_call = device_kernels(fn, 20)
+    row = {"ms": time_cuda(fn, 20, queue_first=True),
+           "device_ms": sum(ms for k, (c, ms) in per_call.items() if "cluster" in k),
+           "host_ms_per_call": host_ms_per_call(fn, 20),
+           "cold_l2_ms": cold_l2_ms(fn, 10),
+           "iterations": n_active + (1 if n_active < kw["max_instances"] else 0),
+           "clusters": n_active,
+           "device_kernels_per_call": {k[:80]: c for k, (c, ms) in per_call.items()}}
+    log(f"  {name} P={p}: events {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
+        f"host {row['host_ms_per_call']:.4f} ms/call, cold L2 {row['cold_l2_ms']:.4f} ms, "
+        f"{row['iterations']} executed iterations ({n_active} clusters)")
+    log(f"  {name} P={p}: device kernels per call {row['device_kernels_per_call']}")
+    return row
+
+
+def kernel_splits(ops):
+    """``kernel_split`` at the main-path shapes and of
+    ``cluster_points_single`` at path A's 878,592 points."""
+    return {f"{name}@{p}": kernel_split(ops, name, p)
+            for name, p in (("cluster_points_single", 207_360),
+                            ("cluster_points_tiled", 878_592),
+                            ("cluster_points_single", 878_592))}
 
 
 def check_kernels(ops):
     import torch
 
+    sms, smem = ops.device_limits(torch.cuda.current_device())
+    for e in range(1, ops.MAX_E_DIMS + 1):
+        for resident in (True, False):
+            py, lib = (f(e, resident, sms, smem)
+                       for f in (ops.on_chip_capacity, ops.library_capacity))
+            if py != lib:
+                raise AssertionError(f"on-chip capacity E={e} resident={resident}: "
+                                     f"wrapper {py}, CUDA library {lib}")
+    log(f"  {sms} SMs, {smem} B of shared memory a block; on-chip capacity at E=4 (wrapper "
+        f"and library agree for E=1..8): single {ops.on_chip_capacity(4, True, sms, smem)} points, "
+        f"tiled state {ops.on_chip_capacity(4, False, sms, smem)} points")
     results = {}
-    for name, p in (("cluster_points_single", 207_360), ("cluster_points_tiled", 878_592)):
-        emb, bw, seed, fg = (torch.from_numpy(x).cuda()
-                             for x in mixture_points(p, seed=p % 1000))
-        wrapper = getattr(ops, name)
+    for name, main_p, extra in (("cluster_points_single", 207_360, ()),
+                                ("cluster_points_tiled", 878_592, (BEYOND_ON_CHIP,))):
         row = {"max_abs_err": 0.0, "label_mismatches": 0}
-        for mode, k, min_seed in (("reference", 20, 0.8), ("nearest", 20, 0.8),
-                                  ("reference", 3, 0.8)):
-            kwargs = dict(e_dims=4, max_instances=k, primary=0.5, secondary=0.3,
-                          min_seediness=min_seed, reference_secondary=mode == "reference")
-            labels, meta = wrapper(emb, bw, seed, fg, **kwargs)
-            ref_labels, ref_meta = ops.cluster_points_reference(emb, bw, seed, fg, **kwargs)
-            torch.cuda.synchronize()
-            err = float((meta - ref_meta).abs().max())
-            if err != 0.0:
-                raise AssertionError(f"{name} {mode} K={k}: meta differs by {err}")
-            n_valid = int((meta[:, -1] > 0.5).sum())
-            if n_valid < min(k, 3):
-                raise AssertionError(f"{name} {mode} K={k}: only {n_valid} clusters formed")
-            n_avail, knife = primary_walk(emb, bw, fg, ref_meta, 0.5, 0.3)
-            mism = labels != ref_labels
-            n_mism = int(mism.sum())
-            if bool((mism & ~knife).any()) or n_mism > MAX_KNIFE_FRACTION * p:
-                raise AssertionError(f"{name} {mode} K={k}: {n_mism} label mismatches, "
-                                     f"{int((mism & ~knife).sum())} not on a knife edge")
-            log(f"  {name} P={p} {mode:9s} K={k:2d}: {n_valid} clusters, "
-                f"{n_mism} knife-edge label mismatches, meta max abs err {err}")
-            row["label_mismatches"] += n_mism
+        for p in (207_360, 878_592) + extra:
+            tensors = cuda_inputs(p)
+            err, n_mism, n_avail = check_exact(ops, name, tensors)
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            if (mode, k) == ("reference", 20):
-                kw = kwargs
-                n_iter_avail = n_avail
+            row["label_mismatches"] += n_mism
+            if p == main_p:
+                main_tensors, n_iter_avail = tensors, n_avail
         check_edge_cases(ops, name)
+        if name == "cluster_points_single":
+            try:
+                ops.cluster_points_single(*cuda_inputs(BEYOND_ON_CHIP), **main_kwargs())
+            except ValueError as exc:
+                log(f"  cluster_points_single P={BEYOND_ON_CHIP}: refused ({exc})")
+            else:
+                raise AssertionError("cluster_points_single took a window beyond its capacity")
+        else:
+            log(f"  cluster_points_tiled P={BEYOND_ON_CHIP}: state off chip, exact above")
+
         # times at the main-path shape, K = 20, reference mode
-        row["ms"] = time_cuda(lambda: wrapper(emb, bw, seed, fg, **kw), 20)
-        row["plain_ms"] = time_cuda(lambda: ops.cluster_points_reference(emb, bw, seed, fg, **kw),
+        split = kernel_split(ops, name, main_p, main_tensors)
+        kernels_per_call = split.pop("device_kernels_per_call")
+        if len(kernels_per_call) != 1 or list(kernels_per_call.values()) != [1.0] \
+                or "cluster" not in next(iter(kernels_per_call)):
+            raise AssertionError(f"{name}: a call ran {kernels_per_call}, expected one "
+                                 "clustering kernel and nothing else")
+        row.update(split)
+        kw = main_kwargs()
+        row["plain_ms"] = time_cuda(lambda: ops.cluster_points_reference(*main_tensors, **kw),
                                     3, warmup=1)
+        floor = device_kernels(lambda: ops.sync_floor(main_p, row["iterations"]), 20)
+        if [c for k, (c, ms) in floor.items() if "sync_floor" in k] != [1.0]:
+            raise AssertionError(f"{name}: the sync floor ran {floor}, expected one "
+                                 "sync-floor kernel a call")
+        row["sync_floor_ms"] = sum(ms for k, (c, ms) in floor.items() if "sync_floor" in k)
+        log(f"  {name} P={main_p}: sync floor {row['sync_floor_ms']:.4f} ms over "
+            f"{row['iterations']} exchanges")
         # least time: inputs read once (emb, bw, seed, fg), labels + meta
         # written once; operations of the executed iterations on the
         # available points (3E + 4 each: sub, mul, mul, add per dim, sqrt,
         # scale, exp, compare)
-        n_bytes = p * (4 * 4 * 2 + 4 + 1) + p * 4 + 32 * 128 * 4
+        n_bytes = main_p * (4 * 4 * 2 + 4 + 1) + main_p * 4 + 32 * 128 * 4
         n_ops = sum(n_iter_avail) * (3 * 4 + 4)
         bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
         ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1e3
         row.update(bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   points=p, iterations=len(n_iter_avail), bytes=n_bytes, ops=n_ops)
+                   points=main_p, bytes=n_bytes, ops=n_ops)
         log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {n_bytes} B, "
-            f"{n_ops} ops over {len(n_iter_avail)} iterations)")
+            f"{n_ops} ops over {len(n_iter_avail)} active iterations)")
         results[name] = row
+    # the single/tiled crossover at path A's window
+    cross = kernel_split(ops, "cluster_points_single", 878_592)
+    cross.pop("device_kernels_per_call")
+    results["cluster_points_single"]["at_878592"] = cross
     return results
 
 
@@ -443,13 +622,13 @@ def main():
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
     launches = {"cluster_points_single": launches_b["cluster_points_single"],
                 "cluster_points_tiled": launches_a["cluster_points_tiled"]}
+    keys = ("max_abs_err", "label_mismatches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "device_ms", "host_ms_per_call", "cold_l2_ms", "sync_floor_ms", "iterations",
+            "points", "at_878592")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": "stemseg_tpu_torch/ops/csrc/cluster.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": row["max_abs_err"], "label_mismatches": row["label_mismatches"],
-         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": None, "points": row["points"],
-         "iterations": row["iterations"]}
+         "replaces": replaces[name], "launches": launches[name], "library_ms": None,
+         **{k: row[k] for k in keys if k in row}}
         for name, row in kernels.items()]}
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))

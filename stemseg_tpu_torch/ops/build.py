@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and compiles on its own
 into ``build/torch_kernels/lib<name>_<hash>.so`` at the root of the
-checkout (the hash is of the source and the flags, so an edit rebuilds).
+checkout. The hash is of every file under ``csrc/`` (sources and the
+headers they include) and the flags, so an edit to any of them rebuilds.
 Building happens at the first CUDA use, never at import; nothing here
 falls back to anything when ``nvcc`` is missing or the build fails.
 """
@@ -49,9 +50,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest[:12]}.so")
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for fname in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fname.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

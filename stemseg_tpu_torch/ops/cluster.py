@@ -15,12 +15,16 @@ state would fit the TPU kernel's 14 MB VMEM budget and to
 ``cluster_points_tiled`` otherwise: the same rule as the JAX package, so a
 window reaches the counterpart of the kernel it reaches there. A wrapper
 given CPU tensors runs ``cluster_points_reference``; given CUDA tensors it
-launches its kernel or raises.
+launches its kernel or raises. ``cluster_points_single`` keeps the window
+in shared memory and raises above ``on_chip_capacity``;
+``cluster_points_tiled`` takes any window up to ``TILED_POINT_LIMIT``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import Tuple
 
 import torch
@@ -32,6 +36,12 @@ META_COLS = 128
 VMEM_BUDGET_BYTES = 14 * 1024 * 1024
 TILED_POINT_LIMIT = 16 * 1024 * 1024
 MAX_E_DIMS = 8
+# the CUDA kernels' shared-memory layout, as csrc/cluster.cu sizes it (its
+# stemseg_cluster_capacity; chip_smoke.py holds the two equal): a fixed
+# part, the streaming kernels' ring of 4 stages x 1024 threads x (E + 1)
+# floats, and bytes per point kept on chip
+FIXED_SMEM = 4096
+RING_BYTES_PER_COLUMN = 4 * 1024 * 4
 
 # launches per wrapper (the plain version counts its calls)
 launch_counts = {"cluster_points_single": 0, "cluster_points_tiled": 0,
@@ -107,19 +117,67 @@ def cluster_points_reference(emb, bw, seed, fg, *, e_dims: int, max_instances: i
     return labels, meta
 
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+def on_chip_capacity(e_dims: int, resident: bool, n_sms: int, smem_per_block: int) -> int:
+    """Most points whose per-point part the kernels keep in shared memory
+    on a card with ``n_sms`` SMs and ``smem_per_block`` bytes a block may
+    opt in to, one block per SM beside a fixed part of ``FIXED_SMEM``
+    bytes. ``resident``: ``cluster_points_single``'s window, its embeddings
+    (E f32) and seediness (f32) with the 9-byte state (best distance, best
+    cluster, two list entries). Else ``cluster_points_tiled``'s state
+    beside its cp.async ring; beyond it the state lives in a global scratch
+    buffer of 13 bytes a point."""
+    ring = 0 if resident else RING_BYTES_PER_COLUMN * (e_dims + 1)
+    per_point = 4 * e_dims + 13 if resident else 9
+    return n_sms * max(0, (smem_per_block - FIXED_SMEM - ring) // per_point)
 
 
-def _c_function(symbol: str):
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SINGLE_ARGS = (_PTR,) * 7 + (_INT,) * 3 + (_FLOAT,) * 3 + (_INT, ctypes.c_ulonglong, _PTR)
+_TILED_ARGS = (_PTR,) * 8 + _SINGLE_ARGS[7:]
+_nonces = itertools.count(1)  # tags the exchange records of each launch
+
+
+@functools.lru_cache(maxsize=None)
+def _c_function(symbol: str, argtypes: tuple, restype=ctypes.c_int):
     fn = getattr(build.load("cluster"), symbol)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
     return fn
 
 
-def _launch(symbol: str, emb, bw, seed, fg, *, e_dims, max_instances, primary,
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> Tuple[int, int]:
+    """(SM count, shared memory a block may opt in to) of CUDA device
+    ``index``."""
+    sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _c_function("stemseg_cluster_limits", (_PTR, _PTR))(
+            ctypes.addressof(sms), ctypes.addressof(smem))
+    if err != 0:
+        raise RuntimeError(f"device attributes: CUDA error {err}")
+    return sms.value, smem.value
+
+
+def library_capacity(e_dims: int, resident: bool, n_sms: int, smem_per_block: int) -> int:
+    """``on_chip_capacity`` as the CUDA library computes it for its
+    launches (builds the library)."""
+    return _c_function("stemseg_cluster_capacity", (_INT,) * 4, ctypes.c_longlong)(
+        e_dims, int(resident), n_sms, smem_per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _records(index: int, stream: int) -> torch.Tensor:
+    """Workspace of the kernels' record exchange on CUDA device ``index``
+    and stream ``stream``: a record of 16 (E + 1) bytes per block and
+    iteration parity, and two decisions, at E = 8. Zeroed once and kept for
+    the process, so that it holds nothing but zeros and the words these
+    kernels wrote, as their exchange requires (csrc/cluster_exchange.cuh)."""
+    sms = device_limits(index)[0]
+    return torch.zeros((2 * sms + 2) * 16 * (MAX_E_DIMS + 1), dtype=torch.uint8,
+                       device=torch.device("cuda", index))
+
+
+def _launch(resident: bool, emb, bw, seed, fg, *, e_dims, max_instances, primary,
             secondary, min_seediness, reference_secondary):
     p = emb.shape[0]
     if not (emb.is_cuda and bw.is_cuda and seed.is_cuda and fg.is_cuda):
@@ -136,39 +194,63 @@ def _launch(symbol: str, emb, bw, seed, fg, *, e_dims, max_instances, primary,
         raise ValueError(f"unsupported problem: P={p} E={e_dims} K={max_instances}")
     emb, bw, seed, fg = (t.contiguous() for t in (emb, bw, seed, fg))
     dev = emb.device
+    sms, smem = device_limits(dev.index)
+    if resident and p > on_chip_capacity(e_dims, True, sms, smem):
+        raise ValueError(f"cluster_points_single: P={p} exceeds the on-chip capacity "
+                         f"{on_chip_capacity(e_dims, True, sms, smem)} at E={e_dims}")
     with torch.cuda.device(dev):
-        labels = torch.empty(p, dtype=torch.int32, device=dev)
-        best_d = torch.empty(p, dtype=torch.float32, device=dev)
-        best_idx = torch.empty(p, dtype=torch.int32, device=dev)
-        avail_last = torch.empty(p, dtype=torch.uint8, device=dev)
-        keys = torch.zeros(K_PAD, dtype=torch.int64, device=dev)
-        meta = torch.zeros(K_PAD, META_COLS, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _c_function(symbol)(
-            emb.data_ptr(), bw.data_ptr(), seed.data_ptr(), fg.data_ptr(),
-            labels.data_ptr(), best_d.data_ptr(), best_idx.data_ptr(),
-            avail_last.data_ptr(), keys.data_ptr(), meta.data_ptr(),
-            p, e_dims, max_instances, primary, secondary, min_seediness,
-            int(bool(reference_secondary)), stream)
+        labels = torch.empty(p, dtype=torch.int32, device=dev)
+        meta = torch.empty(K_PAD, META_COLS, dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in (emb, bw, seed, fg, labels, meta,
+                                       _records(dev.index, stream))]
+        if not resident:
+            state = (torch.empty(13 * p, dtype=torch.uint8, device=dev)
+                     if p > on_chip_capacity(e_dims, False, sms, smem) else None)
+            ptrs.append(None if state is None else state.data_ptr())
+        fn = _c_function("stemseg_cluster_single" if resident else "stemseg_cluster_tiled",
+                         _SINGLE_ARGS if resident else _TILED_ARGS)
+        err = fn(*ptrs, p, e_dims, max_instances, primary, secondary, min_seediness,
+                 int(bool(reference_secondary)), next(_nonces), stream)
     if err != 0:
-        raise RuntimeError(f"{symbol} failed to launch: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
     return labels, meta
 
 
+def sync_floor(n_points: int, iterations: int) -> None:
+    """Launches the clustering kernels' synchronisation alone, on the
+    current CUDA device and the grid the kernels use for ``n_points``:
+    ``iterations`` block reductions, record exchanges and decodes at E = 4
+    with no point work. A measuring aid (the kernels' latency floor); the
+    clustering never calls it."""
+    index = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    out = torch.empty(1, dtype=torch.int64, device=index)
+    err = _c_function("stemseg_cluster_sync_floor", (_PTR, _PTR, _INT, _INT,
+                                                     ctypes.c_ulonglong, _PTR))(
+        _records(index, stream).data_ptr(), out.data_ptr(), n_points, iterations,
+        next(_nonces), stream)
+    if err != 0:
+        raise RuntimeError(f"stemseg_cluster_sync_floor failed to launch: CUDA error {err}")
+
+
 def cluster_points_single(emb, bw, seed, fg, **kwargs):
-    """Counterpart of ``_cluster_kernel``: one cooperative launch."""
+    """Counterpart of ``_cluster_kernel``: one persistent cooperative launch
+    with the window's points and state in shared memory. Raises when the
+    window exceeds ``on_chip_capacity``."""
     if emb.device.type == "cpu":
         return cluster_points_reference(emb, bw, seed, fg, **kwargs)
-    out = _launch("stemseg_cluster_single", emb, bw, seed, fg, **kwargs)
+    out = _launch(True, emb, bw, seed, fg, **kwargs)
     launch_counts["cluster_points_single"] += 1
     return out
 
 
 def cluster_points_tiled(emb, bw, seed, fg, **kwargs):
-    """Counterpart of ``_cluster_kernel_tiled``: K+1 sweep launches."""
+    """Counterpart of ``_cluster_kernel_tiled``: one persistent cooperative
+    launch that streams the points on every sweep."""
     if emb.device.type == "cpu":
         return cluster_points_reference(emb, bw, seed, fg, **kwargs)
-    out = _launch("stemseg_cluster_tiled", emb, bw, seed, fg, **kwargs)
+    out = _launch(False, emb, bw, seed, fg, **kwargs)
     launch_counts["cluster_points_tiled"] += 1
     return out
 

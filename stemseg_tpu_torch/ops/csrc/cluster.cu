@@ -6,69 +6,82 @@
 //     (207,360 points for a 480p 8-frame DAVIS window);
 //   * cluster_points_tiled  <- _cluster_kernel_tiled (:300), the tiled
 //     HBM-streaming kernel (878,592 points for the 704x1248 16-frame DAVIS
-//     window of the CLI's default preset).
+//     window of the CLI's default preset; any count up to 16 M).
 // Both compute exactly clustering._cluster of the JAX package: K sequential
 // iterations, each seeding at the first-occurrence argmax of seediness over
 // the unassigned fg points (sticky stop below min_seediness), taking the
 // seed pixel's own centre and bandwidth, assigning exp(-0.5 d) > primary
 // with d = sqrt(sum_e (x_e - c_e)^2 bw_e), and keeping a running farthest
-// ("reference") or nearest masked distance per point; then the secondary
-// pass, gated by the availability mask of the last executed iteration.
+// ("reference") or nearest distance per point; then the secondary pass,
+// gated by the availability mask of the last executed iteration.
 //
 // Bound on this card: memory. Per point the function reads E embedding
 // floats, E bandwidth floats, the seediness and the fg byte, and writes one
 // label: about 41 B per point at E = 4, against about 10 flops per point
-// and iteration. So the least time is the bytes over 3.35 TB/s.
+// and iteration. What the design spends instead is latency: K sequential
+// grid-wide decisions.
 //
-// Design. The TPU kernel keeps all state in 14 MB of VMEM; an SM has
-// 227 KB of shared memory, so here the per-point state (labels, best_d,
-// best_idx, avail_last) lives in global memory as SoA planes that the
-// wrapper allocates; at DAVIS sizes they and the embeddings (~30 MB at
-// 878,592 points) stay mostly in the 50 MB L2 across iterations. Every
-// point is touched once per iteration, in a fused sweep: sweep s applies
-// iteration s-1 (assignment, running best distance, stale mask) and, in
-// the same pass over the same point, accumulates iteration s's argmax. The
-// argmax is one 64-bit key per point, (order-preserving bits of the score)
-// << 32 | (0xFFFFFFFF - index), so the max key is the max score with the
-// smallest index among ties; it is reduced by warp shuffles within a block
-// and by one atomicMax per block into keys[s]. keys[s] == 0 means that no
-// point was available. Every block decodes keys[0..s-1] into the same
-// decisions (seed index, active, executed, stopped), so no block needs
-// another's state. The secondary pass needs only scalars known once the
-// last executed iteration is decided (any cluster = iteration 0 active;
-// points left = keys[last] != 0), so it runs in the sweep that applies that
-// iteration, and later sweeps return at once.
-//   cluster_points_single: one cooperative launch, grid = the co-resident
-//     blocks, one grid-wide sync per sweep.
-//   cluster_points_tiled: K+1 launches of the sweep kernel over all points
-//     with all blocks in parallel; launch order replaces the grid sync.
+// Design: one persistent cooperative launch of kThreads-thread blocks, one
+// per SM, each block owning a contiguous slice of the points; the blocks agree on each seed
+// through the record exchange of cluster_exchange.cuh (one exchange per
+// executed iteration, O(1) decoding: the decided loop state is carried in
+// registers). Sweep s applies iteration s - 1 and accumulates the block's
+// candidate for iteration s. A block keeps the list of its available points
+// (fg, not yet assigned; double-buffered local indices, built by
+// warp-aggregated appends in any order, which no result depends on), so a
+// sweep visits only those, in coherent warps. Per listed point the state is
+// its best distance (f32) and best cluster (int8); the best distance is only
+// ever read for points that were available in every executed iteration, so
+// it is only kept for listed points. A point's label is written when it is
+// assigned (background at the start); the secondary pass needs only scalars
+// known once the last executed iteration is decided, so it runs in the
+// sweep after that decision, over the list of points available at its start
+// (the stale mask), and needs no synchronisation. Block 0 writes meta.
+//   cluster_points_single: the block's embeddings and seediness are copied
+//     into shared memory once (cp.async), beside the state; bw is read only
+//     at the seed point. Shared memory: 4 KB + (4E + 13) B per point.
+//   cluster_points_tiled: embeddings and seediness of the listed points
+//     stream from global memory on every sweep through a kStages-deep
+//     cp.async ring (each thread copies and consumes its own points, so the
+//     ring needs no block barrier); the state (9 B per point) stays in
+//     shared memory when the block's share fits beside the ring, else it
+//     lives in a global scratch buffer (13 B per point).
 // Built with --fmad=false and without fast math, so that d2 rounds like the
 // plain PyTorch version (one rounding per multiply and add, e = 0..E-1 in
 // order), and sqrtf/expf are the IEEE / accurate versions.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace cg = cooperative_groups;
+#include <type_traits>
 
+#include "cluster_exchange.cuh"
+
+namespace stemseg {
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMetaCols = 128;
+constexpr int kStages = 4;  // cp.async ring depth of the tiled kernel
+
+// Where a kernel keeps a block's points and state.
+enum Mode : int {
+  kResident = 0,      // embeddings, seediness and state in shared memory
+  kStreamOnChip = 1,  // inputs streamed, state in shared memory
+  kStreamOffChip = 2  // inputs streamed, state in global memory
+};
 
 struct Args {
-  const float* emb;            // [n, E]
-  const float* bw;             // [n, E]
-  const float* seed;           // [n]
-  const unsigned char* fg;     // [n] 0/1
-  int* labels;                 // [n] out: slot or -1
-  float* best_d;               // [n] scratch
-  int* best_idx;               // [n] scratch
-  unsigned char* avail_last;   // [n] scratch
-  unsigned long long* keys;    // [k_max] zeroed by the caller
-  float* meta;                 // [32, 128] zeroed by the caller
+  const float* emb;           // [n, E]
+  const float* bw;            // [n, E]
+  const float* seed;          // [n]
+  const unsigned char* fg;    // [n] 0/1
+  int* labels;                // [n] out: slot or -1
+  float* meta;                // [32, 128] out, written whole by block 0
+  void* records;              // Record<E>: [2, gridDim.x] blocks', [2] decisions
+  unsigned char* state;       // kStreamOffChip: 2 x [n] u32 lists, [n] f32, [n] int8
+  unsigned long long nonce;
   int n;
+  int per;                    // points per block (the last block may own fewer)
   int k_max;
   float primary;
   float secondary;
@@ -76,249 +89,399 @@ struct Args {
   int reference_secondary;
 };
 
-struct Decision {
-  int exec;      // iteration k executed (the loop had not stopped before it)
-  int active;    // iteration k made a cluster
-  int last;      // k is the last executed iteration: run the secondary pass
-  int do_sec;    // a cluster exists and points were left at the start of k
-  int seed_next; // accumulate the argmax of iteration k + 1 in this sweep
+// The decided loop state that the next sweep applies.
+template <int E>
+struct Step {
+  bool init;    // sweep 0: set the state up, list the fg points
+  bool apply;   // iteration k is active: assign it
+  bool final;   // k is the last executed iteration: secondary pass
+  bool do_sec;  // a cluster exists and points were left at the start of k
   int k;
-  float c[8];
-  float b[8];
+  float c[E];
+  float b[E];
 };
 
-__device__ __forceinline__ unsigned int ordered_bits(float f) {
-  const unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+template <class Idx>
+struct State {
+  float* bd;         // [per] best distance of a listed point
+  signed char* bi;   // [per] its best cluster
+  Idx* list[2];      // [per] local indices of the available points
+};
+
+// Appends j to list (at *count) for the lanes with keep; all lanes call.
+template <class Idx>
+__device__ __forceinline__ void append(bool keep, int j, Idx* list, int* count) {
+  const unsigned int m = __ballot_sync(0xffffffffu, keep);
+  if (m == 0u) return;
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (keep) list[base + __popc(m & ((1u << lane) - 1u))] = (Idx)j;
 }
 
-__device__ __forceinline__ float from_ordered(unsigned int o) {
-  return __uint_as_float((o & 0x80000000u) ? (o ^ 0x80000000u) : ~o);
-}
-
-// Thread 0 only. Decodes iterations 0..s-1 from keys[] (s >= 1); sweep s
-// applies iteration s - 1.
-template <int E>
-__device__ void decode(const Args& a, int s, Decision* d) {
-  const volatile unsigned long long* keys = a.keys;
-  bool stopped = false, active0 = false, exec = false, active = false;
-  unsigned long long key = 0ull;
-  for (int j = 0; j < s; ++j) {
-    if (stopped) {
-      exec = false;
-      active = false;
-      continue;
-    }
-    exec = true;
-    key = keys[j];
-    active = key != 0ull && from_ordered((unsigned int)(key >> 32)) >= a.min_seed;
-    if (j == 0) active0 = active;
-    stopped = !active;
-  }
-  const int k = s - 1;
-  d->k = k;
-  d->exec = exec;
-  d->active = active;
-  d->last = exec && (!active || k == a.k_max - 1);
-  d->do_sec = active0 && key != 0ull;
-  d->seed_next = exec && !d->last;
-  if (exec && active) {
-    const unsigned int idx = 0xFFFFFFFFu - (unsigned int)(key & 0xFFFFFFFFull);
-    const float score = from_ordered((unsigned int)(key >> 32));
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      d->c[e] = a.emb[(size_t)idx * E + e];
-      d->b[e] = a.bw[(size_t)idx * E + e];
-    }
-    if (blockIdx.x == 0) {
-      float* row = a.meta + (size_t)k * kMetaCols;
-      for (int e = 0; e < E; ++e) {
-        row[e] = d->c[e];
-        row[E + e] = d->b[e];
-      }
-      row[kMetaCols - 2] = score;
-      row[kMetaCols - 1] = 1.0f;
-    }
-  }
-}
-
-__device__ __forceinline__ void init_decision(Decision* d) {
-  d->k = -1;
-  d->exec = 1;
-  d->active = 0;
-  d->last = 0;
-  d->do_sec = 0;
-  d->seed_next = 1;
-}
-
-// One fused sweep over all points (grid-stride), then the block's argmax
-// key into keys[s]. Block-uniform control flow throughout.
-template <int E>
-__device__ void sweep(const Args& a, int s, const Decision& d,
-                      unsigned long long* red) {
+// One sweep's work on local point j (global gi): set it up (init), or
+// apply the decided iteration to it (it is listed, so available at the
+// start of the sweep). emb_at(e) and seed_at() read its embedding and
+// seediness; they are called only when needed. Returns whether the point
+// is available for the next iteration (and then offers it as a candidate).
+template <int E, class Idx, class EmbAt, class SeedAt>
+__device__ __forceinline__ bool step_point(const Args& a, const Step<E>& st, int j,
+                                           unsigned int gi, const State<Idx>& s,
+                                           EmbAt emb_at, SeedAt seed_at,
+                                           unsigned long long& best) {
   const bool ref = a.reference_secondary != 0;
-  unsigned long long best = 0ull;
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n; i += stride) {
-    const bool fgp = a.fg[i] != 0;
+  if (st.init) {
+    if (!a.fg[gi]) {
+      a.labels[gi] = -1;
+      return false;
+    }
+    s.bd[j] = ref ? -INFINITY : INFINITY;
+    s.bi[j] = 0;
+  } else {
     int lab = -1;
-    if (s == 0) {
-      a.labels[i] = -1;
-      a.best_d[i] = ref ? -INFINITY : INFINITY;
-      a.best_idx[i] = 0;
-      a.avail_last[i] = fgp ? 1 : 0;
+    float bd = 0.0f;
+    signed char bi = 0;
+    if (st.apply || st.do_sec) {
+      bd = s.bd[j];
+      bi = s.bi[j];
+    }
+    if (st.apply) {
+      float d2 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float t = emb_at(e) - st.c[e];
+        d2 = d2 + t * t * st.b[e];
+      }
+      const float dist = sqrtf(d2);
+      if (expf(-0.5f * dist) > a.primary) lab = st.k;
+      if (ref ? (dist > bd) : (dist < bd)) {
+        bd = dist;
+        bi = (signed char)st.k;
+        if (!st.final) {
+          s.bd[j] = bd;
+          s.bi[j] = bi;
+        }
+      }
+    }
+    if (st.final) {
+      // ref: gate = available at the start of the last executed iteration
+      // (every listed point); nearest: still unassigned after it
+      if (st.do_sec && (ref || lab == -1) && expf(-0.5f * bd) > a.secondary) lab = bi;
+      a.labels[gi] = lab;
+      return false;
+    }
+    if (lab >= 0) {
+      a.labels[gi] = lab;
+      return false;
+    }
+  }
+  const unsigned long long key = point_key(seed_at(), gi);
+  best = key > best ? key : best;
+  return true;
+}
+
+template <int E, int kMode>
+__global__ void __launch_bounds__(kThreads, 1) cluster_kernel(Args a) {
+  using Idx = typename std::conditional<kMode == kStreamOffChip, unsigned int,
+                                        unsigned short>::type;
+  constexpr bool kRes = kMode == kResident;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Fixed<E>* fx = reinterpret_cast<Fixed<E>*>(smem);
+  const int tid = threadIdx.x, nt = kThreads, nb = gridDim.x;
+  const int per = a.per;
+  const int start = blockIdx.x * per;
+  const int n_local = max(0, min(per, a.n - start));
+  Record<E>* recs = static_cast<Record<E>*>(a.records);
+
+  float* emb_s = nullptr;  // kResident: [E][per] (SoA: conflict-free)
+  float* seed_s = nullptr;
+  float* ring = nullptr;   // streaming: [kStages][E + 1][nt]
+  State<Idx> s;
+  unsigned char* dyn = smem + kFixedSmem;
+  if (kMode == kStreamOffChip) {
+    ring = reinterpret_cast<float*>(dyn);
+    s.list[0] = reinterpret_cast<Idx*>(a.state) + start;
+    s.list[1] = reinterpret_cast<Idx*>(a.state) + (size_t)a.n + start;
+    s.bd = reinterpret_cast<float*>(a.state + (size_t)8 * a.n) + start;
+    s.bi = reinterpret_cast<signed char*>(a.state + (size_t)12 * a.n) + start;
+  } else {
+    float* f = reinterpret_cast<float*>(dyn);
+    if (kRes) {
+      emb_s = f;
+      seed_s = emb_s + (size_t)E * per;
+      f = seed_s + per;
     } else {
-      lab = a.labels[i];
-      const bool avail = lab == -1 && fgp;
-      const unsigned char al = avail ? 1 : 0;  // iteration d.k executed
-      float bd = a.best_d[i];
-      int bi = a.best_idx[i];
-      if (d.active) {
-        float dm = 1e8f;
-        if (avail) {
-          float d2 = 0.0f;
-#pragma unroll
-          for (int e = 0; e < E; ++e) {
-            const float t = a.emb[(size_t)i * E + e] - d.c[e];
-            d2 = d2 + t * t * d.b[e];
-          }
-          const float dist = sqrtf(d2);
-          if (expf(-0.5f * dist) > a.primary) lab = d.k;
-          dm = dist;
-        }
-        if (ref ? (dm > bd) : (dm < bd)) {
-          bd = dm;
-          bi = d.k;
-        }
-      }
-      if (d.last) {
-        if (d.do_sec) {
-          const bool gate = ref ? (al != 0) : (lab == -1 && fgp);
-          if (gate && expf(-0.5f * bd) > a.secondary) lab = bi;
-        }
-        a.labels[i] = lab;
-        continue;
-      }
-      a.labels[i] = lab;
-      a.best_d[i] = bd;
-      a.best_idx[i] = bi;
-      a.avail_last[i] = al;
+      ring = f;
+      f = ring + (size_t)kStages * (E + 1) * nt;
     }
-    if (lab == -1 && fgp) {
-      const unsigned long long key =
-          ((unsigned long long)ordered_bits(a.seed[i]) << 32) |
-          (unsigned long long)(0xFFFFFFFFu - (unsigned int)i);
-      best = key > best ? key : best;
+    s.bd = f;
+    s.list[0] = reinterpret_cast<Idx*>(s.bd + per);
+    s.list[1] = s.list[0] + per;
+    s.bi = reinterpret_cast<signed char*>(s.list[1] + per);
+  }
+  if (kRes) {
+    for (int q = tid; q < n_local * E; q += nt) {
+      const int j = q / E, e = q - j * E;
+      cp_async4(emb_s + (size_t)e * per + j, a.emb + (size_t)start * E + q);
     }
+    for (int j = tid; j < n_local; j += nt) cp_async4(seed_s + j, a.seed + start + j);
+    cp_async_commit();
+    cp_async_wait<0>();
   }
-  if (!d.seed_next) return;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
-    best = o > best ? o : best;
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = best;
+  if (tid == 0) fx->cnt[0] = fx->cnt[1] = 0;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    best = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : 0ull;
+
+  // streaming: item q of a sweep (a point of the block at init, else a listed
+  // point) is taken by thread q % nt in chunk q / nt, through ring stage
+  // (q / nt) % kStages; issue(c, ...) starts chunk c's copies
+  auto issue = [&](int c, int n_items, const Idx* list, bool init, bool need_emb,
+                   bool need_seed) {
+    const int q = c * nt + tid;
+    if (q < n_items && (need_emb || need_seed)) {
+      const unsigned int gi = start + (init ? q : (int)list[q]);
+      if (!init || a.fg[gi]) {
+        float* stage = ring + (size_t)(c % kStages) * (E + 1) * nt + tid;
+        if (need_emb) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, off);
-      best = o > best ? o : best;
+          for (int e = 0; e < E; ++e) cp_async4(stage + (size_t)e * nt, a.emb + (size_t)gi * E + e);
+        }
+        if (need_seed) cp_async4(stage + (size_t)E * nt, a.seed + gi);
+      }
     }
-    if (threadIdx.x == 0 && best != 0ull) atomicMax(a.keys + s, best);
-  }
-}
+    cp_async_commit();
+  };
 
-template <int E>
-__global__ void __launch_bounds__(kThreads) cluster_sweep_kernel(Args a, int s) {
-  __shared__ Decision d;
-  __shared__ unsigned long long red[kThreads / 32];
-  if (threadIdx.x == 0) {
-    if (s == 0) init_decision(&d);
-    else decode<E>(a, s, &d);
-  }
-  __syncthreads();
-  if (!d.exec) return;
-  sweep<E>(a, s, d, red);
-}
+  Step<E> st;
+  st.init = true;
+  st.apply = st.final = st.do_sec = false;
+  st.k = -1;
+#pragma unroll
+  for (int e = 0; e < E; ++e) st.c[e] = st.b[e] = 0.0f;
+  bool active0 = false;
+  int n_active = 0;
 
-template <int E>
-__global__ void __launch_bounds__(kThreads) cluster_single_kernel(Args a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ Decision d;
-  __shared__ unsigned long long red[kThreads / 32];
-  for (int s = 0; s <= a.k_max; ++s) {
-    if (threadIdx.x == 0) {
-      if (s == 0) init_decision(&d);
-      else decode<E>(a, s, &d);
+  for (int it = 0;; ++it) {
+    // sweep `it`: the points of the block (init) or the listed ones
+    const int cur = it & 1;
+    const int n_items = st.init ? n_local : fx->cnt[cur];
+    const Idx* list_in = s.list[cur];
+    Idx* list_out = s.list[cur ^ 1];
+    int* count_out = &fx->cnt[cur ^ 1];
+    unsigned long long best = 0ull;
+    if (kRes) {
+      for (int base = 0; base < n_items; base += nt) {
+        const int q = base + tid;
+        const bool valid = q < n_items;
+        const int j = valid ? (st.init ? q : (int)list_in[q]) : 0;
+        const bool keep = valid && step_point<E>(
+            a, st, j, start + j, s, [&](int e) { return emb_s[(size_t)e * per + j]; },
+            [&]() { return seed_s[j]; }, best);
+        if (!st.final) append(keep, j, list_out, count_out);
+      }
+    } else {
+      const int n_chunks = (n_items + nt - 1) / nt;
+      for (int c = 0; c < kStages - 1; ++c) issue(c, n_items, list_in, st.init, st.apply, !st.final);
+      for (int c = 0; c < n_chunks; ++c) {
+        issue(c + kStages - 1, n_items, list_in, st.init, st.apply, !st.final);
+        cp_async_wait<kStages - 1>();
+        const int q = c * nt + tid;
+        const bool valid = q < n_items;
+        const int j = valid ? (st.init ? q : (int)list_in[q]) : 0;
+        const float* stage = ring + (size_t)(c % kStages) * (E + 1) * nt + tid;
+        const bool keep = valid && step_point<E>(
+            a, st, j, start + j, s, [&](int e) { return stage[(size_t)e * nt]; },
+            [&]() { return stage[(size_t)E * nt]; }, best);
+        if (!st.final) append(keep, j, list_out, count_out);
+      }
+      cp_async_wait<0>();
     }
+    if (st.final) break;
+
+    // the block's candidate for iteration `it`, then the exchange
+    best = block_max(best, fx->red);
+    if (tid == 0) fx->cnt[cur] = 0;  // read by all before block_max's barrier
+    const unsigned int tag = record_tag(a.nonce, it);
+    Record<E>* buf = recs + (size_t)(it & 1) * nb;
+    Record<E>* decision = recs + (size_t)2 * nb + (it & 1);
+    if (tid < 32) {
+      const unsigned int gi = key_index(best);
+      publish<E>(buf + blockIdx.x, tag, best, [&](int e, float* c, float* b) {
+        *c = kRes ? emb_s[(size_t)e * per + (gi - start)] : a.emb[(size_t)gi * E + e];
+        *b = a.bw[(size_t)gi * E + e];
+      });
+    }
+    exchange<E>(buf, decision, nb, tag, fx);
+    const Winner<E>& w = fx->win;
+
+    // decode iteration `it` (the same in every thread of every block)
+    const unsigned long long key = w.key;
+    const bool active = key != 0ull && key_score(key) >= a.min_seed;
+    if (it == 0) active0 = active;
+    st.init = false;
+    st.k = it;
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        st.c[e] = w.c[e];
+        st.b[e] = w.b[e];
+      }
+      if (tid == 0) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          fx->meta_c[it][e] = w.c[e];
+          fx->meta_b[it][e] = w.b[e];
+        }
+        fx->meta_s[it] = key_score(key);
+      }
+      n_active = it + 1;
+      st.apply = true;
+      st.final = it == a.k_max - 1;
+      st.do_sec = st.final;  // active0 holds and points were left
+    } else {
+      st.apply = false;
+      st.final = true;
+      st.do_sec = active0 && key != 0ull;
+    }
+  }
+
+  if (blockIdx.x == 0) {
     __syncthreads();
-    // every block decodes the same keys, so these exits are grid-uniform
-    if (!d.exec) return;
-    sweep<E>(a, s, d, red);
-    if (d.last) return;
-    grid.sync();
+    for (int q = tid; q < kPad * kMetaCols; q += nt) {
+      const int r = q / kMetaCols, col = q - r * kMetaCols;
+      float v = 0.0f;
+      if (r < n_active) {
+        if (col < E) v = fx->meta_c[r][col];
+        else if (col < 2 * E) v = fx->meta_b[r][col - E];
+        else if (col == kMetaCols - 2) v = fx->meta_s[r];
+        else if (col == kMetaCols - 1) v = 1.0f;
+      }
+      a.meta[q] = v;
+    }
   }
 }
 
-cudaError_t resident_grid(const void* kernel, int n, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
+// The clustering kernels' synchronisation alone: per iteration one block
+// reduction, one record published per block, the exchange and the decode,
+// at E = 4, with no point work. `out` receives the last winning key.
+__global__ void __launch_bounds__(kThreads, 1)
+    sync_floor_kernel(Record<4>* recs, unsigned long long* out, int iterations,
+                      unsigned long long nonce) {
+  __shared__ Fixed<4> fx;
+  const int nb = gridDim.x;
+  for (int it = 0; it < iterations; ++it) {
+    unsigned long long best =
+        ((unsigned long long)(threadIdx.x + it) << 32) | (0xFFFFFFFFu - blockIdx.x);
+    best = block_max(best, fx.red);
+    const unsigned int tag = record_tag(nonce, it);
+    Record<4>* buf = recs + (size_t)(it & 1) * nb;
+    if (threadIdx.x < 32) {
+      publish<4>(buf + blockIdx.x, tag, best, [](int e, float* c, float* b) {
+        *c = (float)e;
+        *b = 1.0f;
+      });
+    }
+    exchange<4>(buf, recs + (size_t)2 * nb + (it & 1), nb, tag, &fx);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *out = fx.win.key;
+}
+
+// Grid of one block per SM (fewer for small n), and the device's limits.
+cudaError_t plan(int n, int* blocks, int* per, int* smem_optin) {
+  int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int needed = (n + kThreads - 1) / kThreads;
-  *grid = needed < per_sm * sms ? (needed > 0 ? needed : 1) : per_sm * sms;
+  *blocks = needed < sms ? needed : sms;
+  if (*blocks > 32 * kMaxReadWarps) return cudaErrorInvalidConfiguration;
+  *per = (n + *blocks - 1) / *blocks;
   return cudaSuccess;
 }
 
-template <int E>
-cudaError_t launch_single(const Args& a, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(&cluster_single_kernel<E>);
-  int grid = 0;
-  cudaError_t err = resident_grid(kernel, a.n, &grid);
+// A block's dynamic shared memory is Fixed<E>, the streaming kernels'
+// cp.async ring, and per point on chip: resident 4E + 13 B (E f32, f32
+// seediness, f32 best distance, two u16 list entries, int8 best cluster),
+// streaming 9 B (the state alone).
+size_t ring_bytes(int e_dims, bool resident) {
+  return resident ? 0 : (size_t)kStages * (e_dims + 1) * kThreads * 4;
+}
+
+size_t point_bytes(int e_dims, bool resident) { return resident ? 4 * e_dims + 13 : 9; }
+
+// Most points a block keeps on chip with smem_optin bytes of shared memory.
+long long block_capacity(int e_dims, bool resident, int smem_optin) {
+  const long long room =
+      (long long)smem_optin - kFixedSmem - (long long)ring_bytes(e_dims, resident);
+  return room <= 0 ? 0 : room / (long long)point_bytes(e_dims, resident);
+}
+
+cudaError_t launch_cooperative(const void* kernel, int blocks, size_t smem, void** params,
+                               cudaStream_t stream) {
+  // a grid that cannot be co-resident is refused by the cooperative launch
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  Args args = a;
-  void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), params, 0, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int E>
-cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
-  int grid = 0;
-  cudaError_t err = resident_grid(
-      reinterpret_cast<const void*>(&cluster_sweep_kernel<E>), a.n, &grid);
+template <int E, bool kRes>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  int blocks = 0, smem_optin = 0;
+  cudaError_t err = plan(a.n, &blocks, &a.per, &smem_optin);
   if (err != cudaSuccess) return err;
-  for (int s = 0; s <= a.k_max; ++s) {
-    cluster_sweep_kernel<E><<<grid, kThreads, 0, stream>>>(a, s);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  const bool on_chip = a.per <= block_capacity(E, kRes, smem_optin);
+  size_t smem = kFixedSmem + ring_bytes(E, kRes);
+  if (on_chip) smem += (size_t)a.per * point_bytes(E, kRes);
+  const void* kernel;
+  if (kRes && on_chip) {
+    kernel = reinterpret_cast<const void*>(&cluster_kernel<E, kResident>);
+  } else if (on_chip) {
+    kernel = reinterpret_cast<const void*>(&cluster_kernel<E, kStreamOnChip>);
+  } else if (!kRes && a.state != nullptr) {
+    kernel = reinterpret_cast<const void*>(&cluster_kernel<E, kStreamOffChip>);
+  } else {
+    return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
+  void* params[] = {&a};
+  return launch_cooperative(kernel, blocks, smem, params, stream);
 }
 
+#define STEMSEG_DISPATCH_E(RESIDENT)                          \
+  switch (e_dims) {                                           \
+    case 1: return launch<1, RESIDENT>(a, stream);            \
+    case 2: return launch<2, RESIDENT>(a, stream);            \
+    case 3: return launch<3, RESIDENT>(a, stream);            \
+    case 4: return launch<4, RESIDENT>(a, stream);            \
+    case 5: return launch<5, RESIDENT>(a, stream);            \
+    case 6: return launch<6, RESIDENT>(a, stream);            \
+    case 7: return launch<7, RESIDENT>(a, stream);            \
+    case 8: return launch<8, RESIDENT>(a, stream);            \
+    default: return cudaErrorInvalidValue;                    \
+  }
+
 Args make_args(const void* emb, const void* bw, const void* seed, const void* fg,
-               void* labels, void* best_d, void* best_idx, void* avail_last,
-               void* keys, void* meta, int n, int k_max, float primary,
-               float secondary, float min_seed, int reference_secondary) {
+               void* labels, void* meta, void* records, void* state, int n, int k_max,
+               float primary, float secondary, float min_seed, int reference_secondary,
+               unsigned long long nonce) {
   Args a;
   a.emb = static_cast<const float*>(emb);
   a.bw = static_cast<const float*>(bw);
   a.seed = static_cast<const float*>(seed);
   a.fg = static_cast<const unsigned char*>(fg);
   a.labels = static_cast<int*>(labels);
-  a.best_d = static_cast<float*>(best_d);
-  a.best_idx = static_cast<int*>(best_idx);
-  a.avail_last = static_cast<unsigned char*>(avail_last);
-  a.keys = static_cast<unsigned long long*>(keys);
   a.meta = static_cast<float*>(meta);
+  a.records = records;
+  a.state = static_cast<unsigned char*>(state);
+  a.nonce = nonce;
   a.n = n;
+  a.per = 0;
   a.k_max = k_max;
   a.primary = primary;
   a.secondary = secondary;
@@ -327,46 +490,70 @@ Args make_args(const void* emb, const void* bw, const void* seed, const void* fg
   return a;
 }
 
-#define STEMSEG_DISPATCH_E(FN)                        \
-  switch (e_dims) {                                   \
-    case 1: return FN<1>(a, stream);                  \
-    case 2: return FN<2>(a, stream);                  \
-    case 3: return FN<3>(a, stream);                  \
-    case 4: return FN<4>(a, stream);                  \
-    case 5: return FN<5>(a, stream);                  \
-    case 6: return FN<6>(a, stream);                  \
-    case 7: return FN<7>(a, stream);                  \
-    case 8: return FN<8>(a, stream);                  \
-    default: return cudaErrorInvalidValue;            \
-  }
-
 }  // namespace
+}  // namespace stemseg
 
-// Plain C interface for ctypes. Returns a cudaError_t (0 = launched).
-extern "C" int stemseg_cluster_single(
-    const void* emb, const void* bw, const void* seed, const void* fg,
-    void* labels, void* best_d, void* best_idx, void* avail_last, void* keys,
-    void* meta, int n, int e_dims, int k_max, float primary, float secondary,
-    float min_seed, int reference_secondary, void* stream_ptr) {
-  if (k_max < 1 || k_max > 32 || n < 1) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(emb, bw, seed, fg, labels, best_d, best_idx, avail_last,
-                           keys, meta, n, k_max, primary, secondary, min_seed,
-                           reference_secondary);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const cudaError_t err = [&]() -> cudaError_t { STEMSEG_DISPATCH_E(launch_single) }();
+using namespace stemseg;
+
+// Plain C interface for ctypes. Each returns a cudaError_t (0 = launched).
+// `records` holds (2 * (SM count) + 2) * 16 (E + 1) bytes, 16-byte aligned,
+// zeroed when allocated and written by nothing but these functions' kernels
+// (cluster_exchange.cuh); `nonce` differs between launches that reuse it.
+
+extern "C" int stemseg_cluster_limits(int* sms, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return (int)err;
 }
 
-extern "C" int stemseg_cluster_tiled(
-    const void* emb, const void* bw, const void* seed, const void* fg,
-    void* labels, void* best_d, void* best_idx, void* avail_last, void* keys,
-    void* meta, int n, int e_dims, int k_max, float primary, float secondary,
-    float min_seed, int reference_secondary, void* stream_ptr) {
-  if (k_max < 1 || k_max > 32 || n < 1) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(emb, bw, seed, fg, labels, best_d, best_idx, avail_last,
-                           keys, meta, n, k_max, primary, secondary, min_seed,
-                           reference_secondary);
+// Most points whose per-point shared-memory part fits on chip at E =
+// e_dims on a card of `sms` SMs with `smem_optin` bytes a block: the
+// single kernel's window (resident = 1) or the tiled kernel's state
+// (resident = 0). Pure arithmetic; the launches decide with the same rule.
+extern "C" long long stemseg_cluster_capacity(int e_dims, int resident, int sms,
+                                              int smem_optin) {
+  return (long long)sms * block_capacity(e_dims, resident != 0, smem_optin);
+}
+
+extern "C" int stemseg_cluster_single(
+    const void* emb, const void* bw, const void* seed, const void* fg, void* labels,
+    void* meta, void* records, int n, int e_dims, int k_max, float primary, float secondary,
+    float min_seed, int reference_secondary, unsigned long long nonce, void* stream_ptr) {
+  if (k_max < 1 || k_max > kPad || n < 1) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(emb, bw, seed, fg, labels, meta, records, nullptr, n, k_max,
+                           primary, secondary, min_seed, reference_secondary, nonce);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const cudaError_t err = [&]() -> cudaError_t { STEMSEG_DISPATCH_E(launch_tiled) }();
-  return (int)err;
+  return (int)[&]() -> cudaError_t { STEMSEG_DISPATCH_E(true) }();
+}
+
+// `state` (13 n bytes, 4-byte aligned) is used only when a block's share of
+// the state does not fit in shared memory beside the ring; it may be null
+// otherwise.
+extern "C" int stemseg_cluster_tiled(
+    const void* emb, const void* bw, const void* seed, const void* fg, void* labels,
+    void* meta, void* records, void* state, int n, int e_dims, int k_max, float primary,
+    float secondary, float min_seed, int reference_secondary, unsigned long long nonce,
+    void* stream_ptr) {
+  if (k_max < 1 || k_max > kPad || n < 1) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(emb, bw, seed, fg, labels, meta, records, state, n, k_max, primary,
+                           secondary, min_seed, reference_secondary, nonce);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return (int)[&]() -> cudaError_t { STEMSEG_DISPATCH_E(false) }();
+}
+
+// The sync floor on the clustering kernels' grid for n points: `iterations`
+// exchanges at E = 4.
+extern "C" int stemseg_cluster_sync_floor(void* records, void* out, int n, int iterations,
+                                          unsigned long long nonce, void* stream_ptr) {
+  int blocks = 0, per = 0, smem_optin = 0;
+  cudaError_t err = plan(n, &blocks, &per, &smem_optin);
+  if (err != cudaSuccess) return (int)err;
+  Record<4>* r = static_cast<Record<4>*>(records);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  void* params[] = {&r, &o, &iterations, &nonce};
+  return (int)launch_cooperative(reinterpret_cast<const void*>(&sync_floor_kernel), blocks, 0,
+                                 params, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -194,3 +194,148 @@ def test_dispatch_rule_and_counts():
                                  "cluster_points_reference": 3}
     assert torch.equal(l0, l1) and torch.equal(l0, l2) and torch.equal(m0, m2)
 
+
+
+def _ordered_key(seed: float, idx: int) -> int:
+    """The kernels' 64-bit first-occurrence key of one point."""
+    u = int(np.float32(seed).view(np.uint32))
+    bits = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+    return (bits << 32) | (0xFFFFFFFF - idx)
+
+
+def protocol_model(emb, bw, seed, fg, n_blocks, *, e_dims, max_instances, primary,
+                   secondary, min_seediness, reference_secondary):
+    """CPU model of the CUDA kernels' cross-block protocol (csrc/cluster.cu):
+    the points split into ``n_blocks`` contiguous blocks, each keeping the
+    list of its available points. Per iteration each block sweeps only its
+    listed points (applying the decided iteration, writing the label of a
+    point it assigns, keeping a best distance and best slot per listed
+    point), and offers the first-occurrence key of its best remaining point
+    with that point's emb and bw; every block decodes the same iteration
+    from the max key over all records. The sweep after the last executed
+    iteration runs the secondary pass over the list of points available at
+    its start (the stale mask)."""
+    p = emb.shape[0]
+    per = -(-p // n_blocks)
+    lists = [torch.arange(b * per, min(p, (b + 1) * per)) for b in range(n_blocks)]
+    bd = torch.full((p,), float("-inf") if reference_secondary else float("inf"))
+    bi = torch.zeros(p, dtype=torch.int32)
+    labels = torch.full((p,), -9, dtype=torch.int32)
+    meta = torch.zeros(K_PAD_MODEL, 128)
+    init, apply, final, do_sec, active0 = True, False, False, False, False
+    k, c, b = -1, None, None
+    for it in range(max_instances + 1):
+        records = []
+        for blk, idx in enumerate(lists):
+            lab = torch.full((len(idx),), -1, dtype=torch.int32)
+            if init:
+                listed = fg[idx]
+                labels[idx[~listed]] = -1
+                idx, lab = idx[listed], lab[listed]
+            if apply:
+                d2 = torch.zeros(len(idx))
+                for e in range(e_dims):
+                    d2 = d2 + (emb[idx, e] - c[e]) ** 2 * b[e]
+                dist = torch.sqrt(d2)
+                lab = torch.where(torch.exp(-0.5 * dist) > primary, k, lab)
+                upd = (dist > bd[idx]) if reference_secondary else (dist < bd[idx])
+                bd[idx] = torch.where(upd, dist, bd[idx])
+                bi[idx] = torch.where(upd, k, bi[idx])
+            if final:
+                gate = torch.ones_like(lab, dtype=torch.bool) if reference_secondary \
+                    else lab == -1
+                if do_sec:
+                    lab = torch.where(gate & (torch.exp(-0.5 * bd[idx]) > secondary), bi[idx], lab)
+                labels[idx] = lab
+                continue
+            labels[idx[lab >= 0]] = lab[lab >= 0]
+            lists[blk] = idx = idx[lab == -1]
+            key = max((_ordered_key(float(seed[i]), int(i)) for i in idx), default=0)
+            gi = 0xFFFFFFFF - (key & 0xFFFFFFFF)
+            records.append((key, emb[gi] if key else torch.zeros(e_dims),
+                            bw[gi] if key else torch.zeros(e_dims)))
+        if final:
+            break
+        key, c, b = max(records, key=lambda record: record[0])
+        score = float(seed[0xFFFFFFFF - (key & 0xFFFFFFFF)]) if key else 0.0
+        active = key != 0 and np.float32(score) >= np.float32(min_seediness)
+        active0 = active if it == 0 else active0
+        init, k = False, it
+        if active:
+            meta[it, :e_dims], meta[it, e_dims:2 * e_dims] = c, b
+            meta[it, -2], meta[it, -1] = score, 1.0
+            apply, final = True, it == max_instances - 1
+            do_sec = final
+        else:
+            apply, final, do_sec = False, True, active0 and key != 0
+    assert (labels >= -1).all()  # every point written
+    return labels, meta
+
+
+K_PAD_MODEL = ops.K_PAD
+
+
+def _protocol_case(name, p=1317, seed=4):
+    """(inputs, K, min seediness, n_blocks) of one protocol case; P = 1317
+    is not a multiple of any block count used."""
+    rng = np.random.RandomState(seed)
+    emb, bw, seeds, fg = mixture_points(rng, p)
+    full_bw = _full_bw(bw, (0.3, 0.3))
+    k, min_seed, n_blocks = 20, 0.8, 5
+    if name == "tie":  # the same top seediness in blocks 1 and 3
+        seeds[[300, 900]] = 0.9995
+        fg[[300, 900]] = True
+    elif name == "empty_block":
+        fg[264:528] = False
+    elif name == "k_exhausted":  # wide clusters: the stale mask relabels points
+        k, min_seed = 3, 0.5
+        full_bw *= np.float32(0.1)
+    elif name == "k1":
+        k = 1
+    elif name == "uneven_blocks":
+        n_blocks = 7
+    return emb, full_bw, seeds, fg, k, min_seed, n_blocks
+
+
+@pytest.mark.parametrize("name", ["tie", "empty_block", "k_exhausted", "k1", "uneven_blocks"])
+@pytest.mark.parametrize("mode", ["reference", "nearest"])
+def test_protocol_model_matches_reference(name, mode):
+    emb, full_bw, seeds, fg, k, min_seed, n_blocks = _protocol_case(name)
+    tensors = [torch.from_numpy(x) for x in (emb, full_bw, seeds, fg)]
+    kwargs = dict(e_dims=4, max_instances=k, primary=0.5, secondary=0.3,
+                  min_seediness=min_seed, reference_secondary=mode == "reference")
+    labels, meta = protocol_model(*tensors, n_blocks, **kwargs)
+    ref_labels, ref_meta = ops.cluster_points_reference(*tensors, **kwargs)
+    assert torch.equal(labels, ref_labels)
+    assert torch.equal(meta, ref_meta)
+    n_valid = int((meta[:, -1] > 0.5).sum())
+    assert n_valid == {"k1": 1, "k_exhausted": 3}.get(name, n_valid) and n_valid >= 1
+    assert (labels >= 0).sum() > 100
+    if name == "tie":  # the smaller index of the two equal seeds wins
+        assert torch.equal(meta[0, :4], tensors[0][300])
+    if name == "empty_block":
+        assert (labels[264:528] == -1).all()
+
+
+def test_on_chip_capacity():
+    """H100: 132 SMs, 232,448 bytes of shared memory a block may opt in to."""
+    sms, smem = 132, 232_448
+    cap = ops.on_chip_capacity(4, True, sms, smem)
+    assert 207_360 <= cap and 878_592 <= cap < 3_500_000
+    assert cap == sms * ((smem - ops.FIXED_SMEM) // 29)
+    assert ops.on_chip_capacity(8, True, sms, smem) < cap
+    # the tiled kernel keeps path A's state on chip, not 3.5 M points'
+    assert 878_592 <= ops.on_chip_capacity(4, False, sms, smem) < 3_500_000
+    assert ops.on_chip_capacity(4, False, sms, 10_000) == 0
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    from stemseg_tpu_torch.ops import build
+
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    before = build._library_path("k")
+    (tmp_path / "k.cuh").write_text("// v2\n")
+    assert build._library_path("k") != before
+    assert build._library_path("k") == build._library_path("k")
