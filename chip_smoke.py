@@ -7,18 +7,21 @@ which raises on failure (the script then exits non-zero):
 1. device: name, power limit (nvidia-smi) and the TF32 flags;
 2. build: ``nvcc`` builds the CUDA sources of the checkout;
 3. kernels: ``cluster_points_single`` and ``cluster_points_tiled`` at
-   207,360 and 878,592 points (and the tiled one at 3,500,000, beyond its
-   on-chip state) against their plain PyTorch version on the same
-   mixture-of-Gaussians inputs, both secondary modes and one case that
-   exhausts K: labels exact except knife-edge points (plain
-   ``exp(-0.5 d)`` within 1e-6 of a threshold, at most 0.01 %), meta
-   equal; edge cases exact; the single kernel refuses 3,500,000 points.
-   At the main-path shapes (single 207,360, tiled 878,592, and single at
-   878,592 for the crossover): CUDA-event time, the profiler's device time
-   and kernel list (one clustering kernel per call, nothing else), host
-   time per call, cold-L2 time, executed iterations, the sync floor (the
-   kernels' exchanges alone), plain time and bound. The wrapper's on-chip
-   capacity must equal the CUDA library's for every E;
+   207,360 and 878,592 points with E = 4, and at path D's 487,424 points
+   with E = 3 and no free dims (the tiled one also at path C's 368,640, at
+   3,500,000 and at path C′'s 5,898,240 points, the last two beyond its
+   on-chip state) against their plain
+   PyTorch version on the same mixture-of-Gaussians inputs, both secondary
+   modes and one case that exhausts K: labels exact except knife-edge
+   points (plain ``exp(-0.5 d)`` within 1e-6 of a threshold, at most
+   0.01 %), meta equal; edge cases exact; the single kernel refuses
+   3,500,000 points. At the main-path shapes (single 207,360, tiled
+   878,592, 487,424 at E = 3 and 5,898,240, and single at 878,592 for the
+   crossover): CUDA-event time, the profiler's device time and kernel list
+   (one clustering kernel per call, nothing else), host time per call,
+   cold-L2 time, executed iterations, plain time and bound; at the first
+   two also the sync floor (the kernels' exchanges alone). The wrapper's
+   on-chip capacity must equal the CUDA library's for every E;
 4. main path A: the ``davis_2`` preset at full width (R-101-FPN, 16-frame
    windows, 704x1248 network input) on a 26-frame 480x854 sequence through
    ``TrackGenerator._process_loaded`` into the DAVIS writer; every window
@@ -26,9 +29,30 @@ which raises on failure (the script then exits non-zero):
 5. main path B: ``davis_1`` at 480x854 (8-frame windows, 207,360 points a
    window) on 16 frames; every window through ``cluster_points_single``;
 6. small input: the slice on the GPU against the slice on the CPU (plain
-   versions, CPU convolutions) on the same weights and frames;
+   versions, CPU convolutions) on the same weights and frames, for a
+   DAVIS-shaped and a YT-VIS-shaped (semseg head, fused seediness) config;
 7. steady state: main path A once more, timed only; the device time of
-   each of its layers; and one profiled run (device busy share).
+   each of its layers; and one profiled run (device busy share);
+8. main path C: ``youtube_vis`` (8-frame windows, semseg head of 41 + 1
+   channels, logits) on 20 frames of 720x1280, 640x1152 padded: 4 windows
+   of 368,640 points, each through ``cluster_points_tiled``; the writer's
+   ``results.json`` (at most 10 instances, every mask 720x1280, classes
+   1..40) and ``results.zip``;
+9. main path D: ``kitti_mots_2`` (``xyt``, E = 3, argmax semseg) on 16
+   frames of 375x1242, 544x1792 padded: 3 windows of 487,424 points through
+   ``cluster_points_tiled``; every line of ``results/0002.txt`` (class 1 or
+   2, id / 1000 = class, mask 375x1242) and the NMS's ``results_nms/``;
+10. main path C′: ``youtube_vis`` with ``--resize_embeddings`` on 8 frames:
+   one window clustered at the network input scale, 5,898,240 points with
+   the tiled kernel's state off chip.
+
+Paths C, D and C′ print the fps report of their checked run and of a
+second, steady run, and the device time of each layer (CUDA events). The
+kernel's output on each path's first real window is held against the
+plain version by the phase-3 rule; path
+C also times the DAVIS preset's two heads on its window. With random
+weights the fg logit of the semseg head has one sign over whole frames, so
+the semseg paths first centre it (``centre_fg_logit``).
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
@@ -51,6 +75,9 @@ KNIFE_EPS = 1e-6
 MAX_KNIFE_FRACTION = 1e-4
 MAIN_SEED = 0
 BEYOND_ON_CHIP = 3_500_000  # over both kernels' on-chip capacity at E = 4
+PATH_C_POINTS = 160 * 288 * 8  # youtube_vis window, E = 4
+PATH_D_POINTS = 136 * 448 * 8  # kitti_mots_2 window, E = 3
+PATH_C2_POINTS = 640 * 1152 * 8  # youtube_vis window at the network input scale
 
 
 def log(*args):
@@ -184,50 +211,62 @@ def check_edge_cases(ops, name):
         log(f"  {name} edge case {case}: {n_valid} clusters, exact in both modes")
 
 
-def cuda_inputs(p):
+def cuda_inputs(p, e=4, n_free=2):
     import torch
 
-    return tuple(torch.from_numpy(x).cuda() for x in mixture_points(p, seed=p % 1000))
+    return tuple(torch.from_numpy(x).cuda()
+                 for x in mixture_points(p, seed=p % 1000, e=e, n_free=n_free))
 
 
-def main_kwargs(k=20, mode="reference", min_seed=0.8):
-    return dict(e_dims=4, max_instances=k, primary=0.5, secondary=0.3,
+def main_kwargs(k=20, mode="reference", min_seed=0.8, e=4):
+    return dict(e_dims=e, max_instances=k, primary=0.5, secondary=0.3,
                 min_seediness=min_seed, reference_secondary=mode == "reference")
+
+
+def compare_with_plain(ops, tag, tensors, labels, meta, kwargs):
+    """A kernel's ``labels`` and ``meta`` on ``tensors`` against the plain
+    version's: meta equal, labels equal except knife-edge points, at most
+    MAX_KNIFE_FRACTION of them. Returns (clusters, label mismatches,
+    available points per active iteration)."""
+    import torch
+
+    p = tensors[0].shape[0]
+    ref_labels, ref_meta = ops.cluster_points_reference(*tensors, **kwargs)
+    torch.cuda.synchronize()
+    err = float((meta - ref_meta).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"{tag}: meta differs by {err}")
+    n_avail, knife = primary_walk(tensors[0], tensors[1], tensors[3], ref_meta,
+                                  kwargs["primary"], kwargs["secondary"])
+    mism = labels != ref_labels
+    n_mism = int(mism.sum())
+    if bool((mism & ~knife).any()) or n_mism > MAX_KNIFE_FRACTION * p:
+        raise AssertionError(f"{tag}: {n_mism} label mismatches, "
+                             f"{int((mism & ~knife).sum())} not on a knife edge")
+    return int((meta[:, -1] > 0.5).sum()), n_mism, n_avail
 
 
 def check_exact(ops, name, tensors):
     """Both secondary modes at K = 20 and the reference mode at K = 3
-    against the plain version: meta equal, labels equal except knife-edge
-    points. Returns (max abs meta error, label mismatches, available points
-    per active iteration of the K = 20 reference run)."""
-    import torch
-
-    p = tensors[0].shape[0]
+    against the plain version (``compare_with_plain``). Returns (max abs
+    meta error, label mismatches, available points per active iteration of
+    the K = 20 reference run)."""
+    p, e = tensors[0].shape
     wrapper = getattr(ops, name)
-    err_max, mism_total, n_iter_avail = 0.0, 0, None
+    mism_total, n_iter_avail = 0, None
     for mode, k in (("reference", 20), ("nearest", 20), ("reference", 3)):
-        kwargs = main_kwargs(k, mode)
+        kwargs = main_kwargs(k, mode, e=e)
         labels, meta = wrapper(*tensors, **kwargs)
-        ref_labels, ref_meta = ops.cluster_points_reference(*tensors, **kwargs)
-        torch.cuda.synchronize()
-        err = float((meta - ref_meta).abs().max())
-        if err != 0.0:
-            raise AssertionError(f"{name} P={p} {mode} K={k}: meta differs by {err}")
-        n_valid = int((meta[:, -1] > 0.5).sum())
+        tag = f"{name} P={p} {mode} K={k}"
+        n_valid, n_mism, n_avail = compare_with_plain(ops, tag, tensors, labels, meta, kwargs)
         if n_valid < min(k, 3):
-            raise AssertionError(f"{name} P={p} {mode} K={k}: only {n_valid} clusters formed")
-        n_avail, knife = primary_walk(tensors[0], tensors[1], tensors[3], ref_meta, 0.5, 0.3)
-        mism = labels != ref_labels
-        n_mism = int(mism.sum())
-        if bool((mism & ~knife).any()) or n_mism > MAX_KNIFE_FRACTION * p:
-            raise AssertionError(f"{name} P={p} {mode} K={k}: {n_mism} label mismatches, "
-                                 f"{int((mism & ~knife).sum())} not on a knife edge")
-        log(f"  {name} P={p} {mode:9s} K={k:2d}: {n_valid} clusters, "
-            f"{n_mism} knife-edge label mismatches, meta max abs err {err}")
-        err_max, mism_total = max(err_max, err), mism_total + n_mism
+            raise AssertionError(f"{tag}: only {n_valid} clusters formed")
+        log(f"  {name} P={p} E={e} {mode:9s} K={k:2d}: {n_valid} clusters, "
+            f"{n_mism} knife-edge label mismatches, meta max abs err 0.0")
+        mism_total += n_mism
         if (mode, k) == ("reference", 20):
             n_iter_avail = n_avail
-    return err_max, mism_total, n_iter_avail
+    return 0.0, mism_total, n_iter_avail
 
 
 def device_kernels(fn, n, attempts=2):
@@ -297,7 +336,7 @@ def kernel_split(ops, name, p, tensors=None):
     active ones plus the one that stopped the loop). Needs nothing but the
     wrappers, so it also measures older trees of the port."""
     tensors = cuda_inputs(p) if tensors is None else tensors
-    kw = main_kwargs()
+    kw = main_kwargs(e=tensors[0].shape[1])
     wrapper = getattr(ops, name)
     fn = lambda: wrapper(*tensors, **kw)  # noqa: E731
     _, meta = fn()
@@ -310,10 +349,10 @@ def kernel_split(ops, name, p, tensors=None):
            "iterations": n_active + (1 if n_active < kw["max_instances"] else 0),
            "clusters": n_active,
            "device_kernels_per_call": {k[:80]: c for k, (c, ms) in per_call.items()}}
-    log(f"  {name} P={p}: events {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
+    log(f"  {name} P={p} E={kw['e_dims']}: events {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
         f"host {row['host_ms_per_call']:.4f} ms/call, cold L2 {row['cold_l2_ms']:.4f} ms, "
         f"{row['iterations']} executed iterations ({n_active} clusters)")
-    log(f"  {name} P={p}: device kernels per call {row['device_kernels_per_call']}")
+    log(f"  {name} P={p} E={kw['e_dims']}: device kernels per call {row['device_kernels_per_call']}")
     return row
 
 
@@ -324,6 +363,41 @@ def kernel_splits(ops):
             for name, p in (("cluster_points_single", 207_360),
                             ("cluster_points_tiled", 878_592),
                             ("cluster_points_single", 878_592))}
+
+
+def bound(p, e, n_iter_avail):
+    """Least time of one call: inputs read once as far as the function needs
+    them (emb 4E B, seed 4 B and fg 1 B a point; bw 4E B at each active
+    iteration's seed only), labels (4 B a point) and meta written once;
+    3E + 4 operations (sub, mul, mul, add per dim, sqrt, scale, exp,
+    compare) for each available point of each active iteration."""
+    n_bytes = p * (4 * e + 4 + 1) + len(n_iter_avail) * 4 * e + p * 4 + 32 * 128 * 4
+    n_ops = sum(n_iter_avail) * (3 * e + 4)
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                points=p, e_dims=e, bytes=n_bytes, ops=n_ops)
+
+
+def timed_row(ops, name, tensors, n_iter_avail):
+    """``kernel_split`` on ``tensors`` (which must run one clustering kernel
+    a call and nothing else), the plain version's ms and the bound."""
+    p, e = tensors[0].shape
+    row = kernel_split(ops, name, p, tensors)
+    kernels_per_call = row.pop("device_kernels_per_call")
+    if len(kernels_per_call) != 1 or list(kernels_per_call.values()) != [1.0] \
+            or "cluster" not in next(iter(kernels_per_call)):
+        raise AssertionError(f"{name} P={p}: a call ran {kernels_per_call}, expected one "
+                             "clustering kernel and nothing else")
+    kw = main_kwargs(e=e)
+    row["plain_ms"] = time_cuda(lambda: ops.cluster_points_reference(*tensors, **kw),
+                                3, warmup=1)
+    row.update(bound(p, e, n_iter_avail))
+    log(f"  {name} P={p} E={e}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {row['bytes']} B, "
+        f"{row['ops']} ops over {len(n_iter_avail)} active iterations)")
+    return row
 
 
 def check_kernels(ops):
@@ -342,15 +416,21 @@ def check_kernels(ops):
         f"tiled state {ops.on_chip_capacity(4, False, sms, smem)} points")
     results = {}
     for name, main_p, extra in (("cluster_points_single", 207_360, ()),
-                                ("cluster_points_tiled", 878_592, (BEYOND_ON_CHIP,))):
+                                ("cluster_points_tiled", 878_592,
+                                 (PATH_C_POINTS, BEYOND_ON_CHIP, PATH_C2_POINTS))):
         row = {"max_abs_err": 0.0, "label_mismatches": 0}
-        for p in (207_360, 878_592) + extra:
-            tensors = cuda_inputs(p)
+        shapes = [(p, 4, 2) for p in (207_360, 878_592) + extra] + [(PATH_D_POINTS, 3, 0)]
+        for p, e, n_free in shapes:
+            tensors = cuda_inputs(p, e, n_free)
             err, n_mism, n_avail = check_exact(ops, name, tensors)
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["label_mismatches"] += n_mism
             if p == main_p:
                 main_tensors, n_iter_avail = tensors, n_avail
+            elif name == "cluster_points_tiled" and p in (PATH_D_POINTS, PATH_C2_POINTS):
+                # the shapes of paths D and C′
+                row[f"at_{p}_e{e}"] = timed_row(ops, name, tensors, n_avail)
+            del tensors
         check_edge_cases(ops, name)
         if name == "cluster_points_single":
             try:
@@ -360,19 +440,11 @@ def check_kernels(ops):
             else:
                 raise AssertionError("cluster_points_single took a window beyond its capacity")
         else:
-            log(f"  cluster_points_tiled P={BEYOND_ON_CHIP}: state off chip, exact above")
+            log(f"  cluster_points_tiled P={BEYOND_ON_CHIP} and P={PATH_C2_POINTS}: "
+                "state off chip, exact above")
 
         # times at the main-path shape, K = 20, reference mode
-        split = kernel_split(ops, name, main_p, main_tensors)
-        kernels_per_call = split.pop("device_kernels_per_call")
-        if len(kernels_per_call) != 1 or list(kernels_per_call.values()) != [1.0] \
-                or "cluster" not in next(iter(kernels_per_call)):
-            raise AssertionError(f"{name}: a call ran {kernels_per_call}, expected one "
-                                 "clustering kernel and nothing else")
-        row.update(split)
-        kw = main_kwargs()
-        row["plain_ms"] = time_cuda(lambda: ops.cluster_points_reference(*main_tensors, **kw),
-                                    3, warmup=1)
+        row.update(timed_row(ops, name, main_tensors, n_iter_avail))
         floor = device_kernels(lambda: ops.sync_floor(main_p, row["iterations"]), 20)
         if [c for k, (c, ms) in floor.items() if "sync_floor" in k] != [1.0]:
             raise AssertionError(f"{name}: the sync floor ran {floor}, expected one "
@@ -380,20 +452,6 @@ def check_kernels(ops):
         row["sync_floor_ms"] = sum(ms for k, (c, ms) in floor.items() if "sync_floor" in k)
         log(f"  {name} P={main_p}: sync floor {row['sync_floor_ms']:.4f} ms over "
             f"{row['iterations']} exchanges")
-        # least time: inputs read once (emb, bw, seed, fg), labels + meta
-        # written once; operations of the executed iterations on the
-        # available points (3E + 4 each: sub, mul, mul, add per dim, sqrt,
-        # scale, exp, compare)
-        n_bytes = main_p * (4 * 4 * 2 + 4 + 1) + main_p * 4 + 32 * 128 * 4
-        n_ops = sum(n_iter_avail) * (3 * 4 + 4)
-        bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = n_ops / PEAK_FP32_OPS_PER_S * 1e3
-        row.update(bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   points=main_p, bytes=n_bytes, ops=n_ops)
-        log(f"  {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}: {n_bytes} B, "
-            f"{n_ops} ops over {len(n_iter_avail)} active iterations)")
         results[name] = row
     # the single/tiled crossover at path A's window
     cross = kernel_split(ops, "cluster_points_single", 878_592)
@@ -402,40 +460,157 @@ def check_kernels(ops):
     return results
 
 
-def run_main_path(cfg, frames, seq_id, out_dir, seed):
-    """The port's main path, as a user drives it: model, TrackGenerator,
-    DAVIS writer, one sequence of raw frames."""
-    from stemseg_tpu_torch.inference.main import TrackGenerator
-    from stemseg_tpu_torch.inference.output_utils import DavisOutputGenerator
+def make_writer(dataset, out_dir, upscaled_inputs=False, device="cuda"):
+    from stemseg_tpu_torch.inference.output_utils import (
+        DavisOutputGenerator,
+        KittiMOTSOutputGenerator,
+        YoutubeVISOutputGenerator,
+    )
+
+    cls = {"davis": DavisOutputGenerator, "ytvis": YoutubeVISOutputGenerator,
+           "kittimots": KittiMOTSOutputGenerator}[dataset]
+    return cls(out_dir, upscaled_inputs=upscaled_inputs, device=device)
+
+
+def max_tracks_of(cfg, dataset):
+    return {"davis": cfg.data.davis.max_inference_tracks,
+            "ytvis": cfg.data.youtube_vis.max_inference_tracks,
+            "kittimots": cfg.data.kitti_mots.max_inference_tracks}[dataset]
+
+
+def resize_hw(cfg, frames):
+    from stemseg_tpu_torch.structures.geometry import compute_resize_params
+
+    new_w, new_h, _ = compute_resize_params((frames.shape[2], frames.shape[1]),
+                                            cfg.input.min_dim, cfg.input.max_dim)
+    return new_h, new_w
+
+
+def window_features(eng, frames):
+    """Backbone + FPN of the first window of ``frames``, as the heads take
+    them: coarsest first, each ``[1, C, T, h_s, w_s]``."""
+    import torch
+
+    raw = torch.from_numpy(frames[:eng.cfg.input.num_frames]).to(eng.device)
+    with torch.no_grad():
+        feats = eng.model.backbone_features(eng.preprocess(raw, resize_hw(eng.cfg, frames)))
+    return [f.permute(1, 0, 2, 3)[None] for f in feats[::-1]]
+
+
+def centre_fg_logit(model, cfg, frames):
+    """The fg channel's weights of the semseg head lose their component
+    along the head trunk's mean output on the first window of ``frames``
+    (with 2 channels, the difference of the two channels' weights does), so
+    that the fg decision of random weights varies over the pixels."""
+    import torch
+
+    from stemseg_tpu_torch.inference.engine import InferenceEngine
+
+    head = model.semseg_head
+    with torch.no_grad():
+        trunk = head.trunk(window_features(InferenceEngine(cfg, model), frames))
+        mu = trunk.mean(dim=(0, 2, 3, 4)).double()
+        w = head.conv_out.weight[:, :, 0, 0, 0]
+        d = (w[-1] - (w[0] if w.shape[0] == 2 else 0.0)).double()
+        w[-1] -= ((d @ mu) / (mu @ mu) * mu).float()
+
+
+def build_random_model(cfg, frames, seed, device="cuda"):
     from stemseg_tpu_torch.models import build_model, init_random_weights
+
+    model = build_model(cfg, device=device)
+    init_random_weights(model, seed)
+    if model.semseg_head is not None:
+        centre_fg_logit(model, cfg, frames)
+    return model
+
+
+def run_main_path(tg, frames, seq_id):
+    """The port's main path, as a user drives it: one sequence of raw frames
+    through the TrackGenerator into its writer, then the writer's
+    ``save()``. Returns the chainer's output and the launch counts of the
+    run."""
     from stemseg_tpu_torch.ops import launch_counts, reset_launch_counts
     from stemseg_tpu_torch.utils.timer import Timer
 
-    model = build_model(cfg, device="cuda")
-    init_random_weights(model, seed)
-    tg = TrackGenerator(cfg, "davis", model, DavisOutputGenerator(out_dir, device="cuda"),
-                        cfg.data.davis.max_inference_tracks)
     seq = Sequence(seq_id, len(frames), frames.shape[1:3])
     Timer.reset()
     reset_launch_counts()
     labels, counts, lifetimes, metas = tg._process_loaded(
         seq, frames, frames.shape[1:3], tg.max_tracks)
     launches = dict(launch_counts)
-    return tg, labels, counts, metas, launches
+    tg.output_generator.save()
+    return labels, counts, metas, launches
 
 
-def check_main_path(tag, preset, overrides, n_frames, kernel, expect_windows,
-                    expect_shape, out_root):
+def make_track_generator(cfg, dataset, model, out_dir, resize_embeddings=False,
+                         frame_overlap=-1):
+    from stemseg_tpu_torch.inference.main import TrackGenerator
+
+    writer = make_writer(dataset, out_dir, upscaled_inputs=resize_embeddings,
+                         device=next(model.parameters()).device)
+    return TrackGenerator(cfg, dataset, model, writer, max_tracks_of(cfg, dataset),
+                          frame_overlap=frame_overlap, resize_embeddings=resize_embeddings)
+
+
+def check_outputs(tag, tg, out_dir, seq_id, frames):
+    """The writer's files, by the repo's own readers."""
+    from stemseg_tpu_torch.inference.output_utils.kitti_mots_postprocessing import Detection
+    from stemseg_tpu_torch.utils import rle
+
+    n_frames, image_hw = len(frames), tuple(frames.shape[1:3])
+    if tg.dataset == "davis":
+        pngs = sorted(os.listdir(os.path.join(out_dir, "results", seq_id)))
+        if pngs != [f"{t:05d}.png" for t in range(n_frames)]:
+            raise AssertionError(f"path {tag}: wrote {len(pngs)} PNGs, expected {n_frames}")
+        return f"{len(pngs)} PNGs"
+    if tg.dataset == "ytvis":
+        with open(os.path.join(out_dir, "results.json")) as fh:
+            results = json.load(fh)
+        n_classes = tg.cfg.input.num_classes
+        if not 0 < len(results) <= tg.max_tracks or \
+                not os.path.isfile(os.path.join(out_dir, "results.zip")):
+            raise AssertionError(f"path {tag}: {len(results)} instances, or no results.zip")
+        for r in results:
+            shapes = {rle.decode(m).shape for m in r["segmentations"]}
+            if r["video_id"] != seq_id or len(r["segmentations"]) != n_frames \
+                    or shapes != {image_hw} or not 1 <= r["category_id"] <= n_classes - 1 \
+                    or not 0 < r["score"] <= 1:
+                raise AssertionError(f"path {tag}: instance {r['category_id']} "
+                                     f"{r['score']} {len(r['segmentations'])} {shapes}")
+        classes = sorted({r["category_id"] for r in results})
+        return f"results.json: {len(results)} instances, classes {classes}"
+    with open(os.path.join(out_dir, "results", f"{seq_id}.txt")) as fh:
+        dets = [Detection.from_txt(line) for line in fh]
+    for d in dets:
+        if d.class_id not in (1, 2) or d.track_id // 1000 != d.class_id \
+                or rle.decode(d.mask).shape != image_hw or not 0 <= d.frame_id < n_frames:
+            raise AssertionError(f"path {tag}: bad line {d.as_txt()[:80]}")
+    nms_file = os.path.join(out_dir, "results_nms", f"{seq_id}.txt")
+    if not dets or not os.path.isfile(nms_file):
+        raise AssertionError(f"path {tag}: {len(dets)} detections, NMS output missing")
+    with open(nms_file) as fh:
+        n_nms = len(fh.readlines())
+    return (f"{seq_id}.txt: {len(dets)} detections of {len({d.track_id for d in dets})} "
+            f"tracks, {n_nms} after the NMS")
+
+
+def check_main_path(tag, preset, overrides, dataset, frames, seq_id, kernel, expect_windows,
+                    expect_shape, out_root, resize_embeddings=False):
     import numpy as np
+    import torch
 
     from stemseg_tpu_torch.config import load_preset, merge
 
     cfg = merge(load_preset(preset), overrides)
-    frames = synthetic_frames(n_frames, 480, 854, seed=MAIN_SEED)
+    model = build_random_model(cfg, frames, MAIN_SEED)
     out_dir = os.path.join(out_root, tag)
+    tg = make_track_generator(cfg, dataset, model, out_dir, resize_embeddings)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tg, labels, counts, metas, launches = run_main_path(cfg, frames, tag, out_dir, MAIN_SEED)
+    labels, counts, metas, launches = run_main_path(tg, frames, seq_id)
     wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     other = "cluster_points_single" if kernel == "cluster_points_tiled" else "cluster_points_tiled"
     if launches[kernel] != expect_windows or launches[other] != 0 \
             or launches["cluster_points_reference"] != 0:
@@ -443,87 +618,204 @@ def check_main_path(tag, preset, overrides, n_frames, kernel, expect_windows,
                              f"of {kernel} and no other")
     if labels.shape != expect_shape:
         raise AssertionError(f"path {tag}: labels {labels.shape}, expected {expect_shape}")
-    pngs = sorted(os.listdir(os.path.join(out_dir, "results", tag)))
-    if pngs != [f"{t:05d}.png" for t in range(n_frames)]:
-        raise AssertionError(f"path {tag}: wrote {len(pngs)} PNGs, expected {n_frames}")
+    written = check_outputs(tag, tg, out_dir, seq_id, frames)
     per_window = [int(m.valid.sum()) for m in metas]
     n_points = [int(np.prod(m.labels.shape)) for m in metas]
     if not all(per_window) or len(counts) < 2:
         raise AssertionError(f"path {tag}: no clusters formed ({per_window})")
     log(f"  path {tag}: {preset} min/max dim {cfg.input.min_dim}/{cfg.input.max_dim}, "
-        f"{n_frames} frames, {len(metas)} windows of {n_points[0]} points, "
-        f"labels {labels.shape}, {len(counts) - 1} tracks, {len(pngs)} PNGs, wall {wall:.3f} s")
+        f"{len(frames)} frames of {frames.shape[1]}x{frames.shape[2]}, {len(metas)} windows of "
+        f"{n_points[0]} points, labels {labels.shape}, {len(counts) - 1} tracks, {written}, "
+        f"wall {wall:.3f} s (writer included), peak device memory {peak_gib:.2f} GiB")
     log(f"  path {tag}: clusters per window {per_window}; launches {launches}")
     for line in tg.fps_report():
         log(f"  path {tag}: {line}")
-    return cfg, frames, launches
+    return cfg, model, launches
 
 
 def check_small_input(out_root):
-    """The slice on the GPU against the slice on the CPU on one small input:
-    engine outputs within 1e-3, labels on >= 99.9 % of the pixels."""
+    """The slice on the GPU against the slice on the CPU on one small input,
+    for a DAVIS-shaped config and a YT-VIS-shaped one (semseg head of
+    (256, 256, 256, 256) channels with 4 + 1 logits, fused seediness):
+    engine outputs within 1e-3, labels and the argmax of the multiclass
+    logits on >= 99.9 % of the pixels."""
     import numpy as np
     import torch
 
     from stemseg_tpu_torch.config import load_config
-    from stemseg_tpu_torch.inference.main import TrackGenerator
-    from stemseg_tpu_torch.inference.output_utils import DavisOutputGenerator
-    from stemseg_tpu_torch.models import build_model, init_random_weights
 
-    cfg = load_config({
-        "input": {"num_frames": 4, "min_dim": 64, "max_dim": 96},
-        "model": {"backbone": {"type": "R-50-FPN"}, "embedding_dim_mode": "xyff",
-                  "use_seediness_head": True, "use_semseg_head": False,
-                  "embeddings": {"embedding_size": 4}},
-        "training": {"losses": {"embedding": {"free_dim_stds": [0.3, 0.3]}}},
-        "clustering": {"min_seediness_prob": 0.05}})
+    base = {"input": {"num_frames": 4, "min_dim": 64, "max_dim": 96},
+            "model": {"backbone": {"type": "R-50-FPN"}, "embedding_dim_mode": "xyff",
+                      "use_seediness_head": True, "use_semseg_head": False,
+                      "embeddings": {"embedding_size": 4}},
+            "training": {"losses": {"embedding": {"free_dim_stds": [0.3, 0.3]}}},
+            "clustering": {"min_seediness_prob": 0.05}}
+    semseg = json.loads(json.dumps(base))
+    semseg["input"]["num_classes"] = 4
+    semseg["model"].update(use_seediness_head=False, use_semseg_head=True,
+                           semseg={"inter_channels": [256, 256, 256, 256]})
     frames = synthetic_frames(10, 32, 48, seed=1)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg, device=dev)
-        init_random_weights(model, 1)
-        tg = TrackGenerator(cfg, "davis", model,
-                            DavisOutputGenerator(os.path.join(out_root, "small_" + dev),
-                                                 device=dev), 20, frame_overlap=2)
-        out = tg.do_inference(frames, (32, 48))
-        outs[dev] = (out, tg.do_clustering(out)[0])
-    (g_out, g_labels), (c_out, c_labels) = outs["cuda"], outs["cpu"]
-    err = max(float((gw[k].cpu() - cw[k]).abs().max())
-              for gw, cw in zip(g_out["windows"], c_out["windows"])
-              for k in ("embeddings", "bandwidths", "seediness"))
-    agree = float((g_labels == c_labels).mean())
-    log(f"  small input: GPU vs CPU engine max abs err {err:.3g}, label agreement {agree:.6f}")
-    if not err < 1e-3 or agree < 0.999 or not np.isfinite(err):
-        raise AssertionError(f"small input: err {err}, agreement {agree}")
+    for dataset, over in (("davis", base), ("ytvis", semseg)):
+        cfg = load_config(over)
+        cpu_model = build_random_model(cfg, frames, 1, device="cpu")
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            model = cpu_model
+            if dev == "cuda":
+                model = build_random_model(cfg, frames, 1, device="cuda")
+                model.load_state_dict(cpu_model.state_dict())
+            tg = make_track_generator(cfg, dataset, model, os.path.join(out_root, "small_" + dev),
+                                      frame_overlap=2)
+            out = tg.do_inference(frames, (32, 48))
+            outs[dev] = (out, tg.do_clustering(out)[0])
+        (g_out, g_labels), (c_out, c_labels) = outs["cuda"], outs["cpu"]
+        err = max(float((gw[k].cpu() - cw[k]).abs().max())
+                  for gw, cw in zip(g_out["windows"], c_out["windows"])
+                  for k in ("embeddings", "bandwidths", "seediness"))
+        agree = float((g_labels == c_labels).mean())
+        extra, argmax_agree = "", 1.0
+        if g_out["multiclass_masks"] is not None:
+            g_mc, c_mc = g_out["multiclass_masks"].cpu(), c_out["multiclass_masks"]
+            err = max(err, float((g_mc - c_mc).abs().max()))
+            argmax_agree = float((g_mc.argmax(-1) == c_mc.argmax(-1)).float().mean())
+            fg_share = float(c_out["fg_masks"].float().mean())
+            extra = f", argmax agreement {argmax_agree:.6f}, fg share {fg_share:.3f}"
+        log(f"  small input {dataset}: GPU vs CPU engine max abs err {err:.3g}, label "
+            f"agreement {agree:.6f}{extra}")
+        if not err < 1e-3 or agree < 0.999 or argmax_agree < 0.999 or not np.isfinite(err):
+            raise AssertionError(f"small input {dataset}: err {err}, agreement {agree}, "
+                                 f"argmax agreement {argmax_agree}")
 
 
-def layer_split(tg, frames, kernel_ms):
-    """Device time of each layer of path A at its real shapes (CUDA events,
-    warm): preprocessing and backbone + FPN on one window's 16 new frames,
-    the two 3D heads on one window, scaled to the 26-frame sequence."""
+def window_cluster_ms(tg, frames):
+    """CUDA-event ms of clustering the first window of ``frames`` as the
+    chainer does (upscale if full scale, flatten, kernel, relabel), and of
+    the kernel alone on the inputs it got, with its point count and E. The
+    kernel's output on those inputs is held against the plain version
+    (``compare_with_plain``)."""
     import torch
 
-    from stemseg_tpu_torch.structures.geometry import compute_resize_params
+    import stemseg_tpu_torch.inference.clustering as clustering
+    from stemseg_tpu_torch.ops import cluster as ops
+
+    with torch.no_grad():
+        out = tg.do_inference(frames, tuple(frames.shape[1:3]))
+    w0 = out["windows"][0]
+    fg = out["fg_masks"][torch.tensor(w0["frames"], device=tg.device)]
+    del out
+    fn = lambda: tg.chainer.cluster_fn(w0["embeddings"], w0["bandwidths"],  # noqa: E731
+                                       w0["seediness"], fg, 1)
+    seen = {}
+    kernel_fn = clustering.cluster_points
+
+    def spy(*args, **kwargs):
+        out = kernel_fn(*args, **kwargs)
+        seen.update(args=args, kwargs=kwargs, out=tuple(t.clone() for t in out))
+        return out
+
+    clustering.cluster_points = spy
+    try:
+        fn()
+    finally:
+        clustering.cluster_points = kernel_fn
+    shape = seen["args"][0].shape
+    n_valid, n_mism, _ = compare_with_plain(
+        ops, f"window of {tuple(shape)}", seen["args"], *seen["out"], seen["kwargs"])
+    log(f"  first window {tuple(shape)}: {n_valid} clusters, {n_mism} knife-edge label "
+        "mismatches against the plain version, meta equal")
+    window_ms = time_cuda(fn, 3, warmup=1)
+    kernel_ms = time_cuda(lambda: kernel_fn(*seen["args"], **seen["kwargs"]), 5, warmup=1)
+    return window_ms, kernel_ms, shape
+
+
+def layer_split(tag, tg, frames, n_windows, kernel_ms=None, window_ms=None, compare_heads=None):
+    """Device time of each layer of a path at its real shapes (CUDA events,
+    warm): preprocessing and backbone + FPN on one window's frames scaled to
+    the sequence, each 3D head (and the 4x semseg upscale) on one window
+    times the windows, and the clustering of one window times the
+    windows."""
+    import torch
+
+    from stemseg_tpu_torch.models.layers import upsample_trilinear
 
     eng = tg.engine
     t_win = tg.cfg.input.num_frames
-    new_w, new_h, _ = compute_resize_params((frames.shape[2], frames.shape[1]),
-                                            tg.cfg.input.min_dim, tg.cfg.input.max_dim)
-    raw = torch.from_numpy(frames[:t_win]).cuda()
+    hw = resize_hw(tg.cfg, frames)
+    raw = torch.from_numpy(frames[:t_win]).to(eng.device)
+    n_frames = len(frames)
+    parts = {}
     with torch.no_grad():
-        pre_ms = time_cuda(lambda: eng.preprocess(raw, (new_h, new_w)), 3)
-        batch = eng.preprocess(raw, (new_h, new_w))
-        bb_ms = time_cuda(lambda: eng.model.backbone_features(batch), 3)
-        feats = eng.model.backbone_features(batch)
-        heads_ms = time_cuda(lambda: eng.heads(feats), 3)
-    n_frames, n_windows = len(frames), 2
-    parts = {"preprocess": pre_ms * n_frames / t_win,
-             "backbone+FPN": bb_ms * n_frames / t_win,
-             "3D heads": heads_ms * n_windows,
-             "clustering kernels": kernel_ms * n_windows}
-    for name, ms in parts.items():
-        log(f"  layer split A: {name:18s} {ms:9.3f} ms for {n_frames} frames")
+        parts["preprocess"] = time_cuda(lambda: eng.preprocess(raw, hw), 3) * n_frames / t_win
+        batch = eng.preprocess(raw, hw)
+        parts["backbone+FPN"] = time_cuda(lambda: eng.model.backbone_features(batch),
+                                          3) * n_frames / t_win
+        feats = window_features(eng, frames)
+        heads = {"embedding head": eng.model.embedding_head,
+                 "seediness head": eng.model.seediness_head,
+                 "semseg head": eng.model.semseg_head}
+        for name, head in heads.items():
+            if head is not None:
+                parts[name] = time_cuda(lambda: head(feats), 3) * n_windows
+        if eng.semseg_resize_scale != 1.0:
+            logits = eng.model.semseg_head(feats)
+            s = eng.semseg_resize_scale
+            parts["semseg 4x upscale"] = time_cuda(
+                lambda: upsample_trilinear(logits, (1.0, s, s)), 3) * n_windows
+            del logits
+        if window_ms is not None:
+            parts["clustering, window prep"] = (window_ms - kernel_ms) * n_windows
+        parts["clustering kernels"] = kernel_ms * n_windows
+        for name, ms in parts.items():
+            log(f"  layer split {tag}: {name:24s} {ms:9.3f} ms for {n_frames} frames")
+        if compare_heads:
+            ms = sum(time_cuda(lambda: h(feats), 3) for h in compare_heads.values())
+            mine = sum(v for k, v in parts.items() if "head" in k) / n_windows
+            log(f"  layer split {tag}: one window's heads {mine:.3f} ms; the DAVIS preset's "
+                f"{' + '.join(compare_heads)} on the same window {ms:.3f} ms "
+                f"(ratio {mine / ms:.3f})")
     return parts
+
+
+def davis_heads():
+    """The DAVIS presets' embedding (E = 4, no fused seediness) and
+    seediness heads for 8-frame windows, random weights."""
+    from stemseg_tpu_torch.config import load_preset
+    from stemseg_tpu_torch.models import init_random_weights
+    from stemseg_tpu_torch.models.decoders import EmbeddingDecoder, SeedinessDecoder
+
+    m = load_preset("davis_1").model
+    c = m.resnets.backbone_out_channels
+    heads = {"embedding": EmbeddingDecoder(
+                 c, tuple(m.embeddings.inter_channels), m.embeddings.embedding_size,
+                 m.embedding_dim_mode, m.embeddings.tanh_activation, seediness_output=False,
+                 num_frames=8, gn_groups=m.embeddings.gn_num_groups),
+             "seediness": SeedinessDecoder(c, tuple(m.seediness.inter_channels), num_frames=8,
+                                           gn_groups=m.seediness.gn_num_groups)}
+    for i, h in enumerate(heads.values()):
+        init_random_weights(h, i)
+        h.cuda().eval()
+    return heads
+
+
+def semseg_path(tag, preset, dataset, frames, seq_id, n_windows, expect_shape, out_root,
+                resize_embeddings=False, compare_heads=None):
+    """A YT-VIS or KITTI-MOTS path: checked run, steady run, layer split."""
+    cfg, model, launches = check_main_path(
+        tag, preset, {"clustering": {"min_seediness_prob": 0.05}}, dataset, frames, seq_id,
+        "cluster_points_tiled", n_windows, expect_shape, out_root, resize_embeddings)
+    tg = make_track_generator(cfg, dataset, model, os.path.join(out_root, tag + "2"),
+                              resize_embeddings)
+    t0 = time.perf_counter()
+    run_main_path(tg, frames, seq_id)
+    log(f"  path {tag} steady: wall {time.perf_counter() - t0:.3f} s (writer included)")
+    for line in tg.fps_report():
+        log(f"  path {tag} steady: {line}")
+    window_ms, kernel_ms, shape = window_cluster_ms(tg, frames)
+    log(f"  path {tag}: cluster_points_tiled on the first window's inputs {tuple(shape)}: "
+        f"{kernel_ms:.4f} ms; the window's whole clustering step {window_ms:.4f} ms")
+    parts = layer_split(tag, tg, frames, n_windows, kernel_ms, window_ms, compare_heads)
+    return launches, {"kernel_ms_real_window": kernel_ms, "points": int(shape[0]),
+                      "layer_split_ms": parts}
 
 
 def device_profile(tg, frames):
@@ -580,7 +872,7 @@ def main():
     log(f"  cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     # imported lazily: cv2 by the CLI's frame reader, yaml for a config.yaml,
-    # PIL by the DAVIS writer (the only one of them the main path below runs)
+    # PIL by the DAVIS writer (the only one of them the main paths below run)
     present = {m: importlib.util.find_spec(m) is not None for m in ("yaml", "cv2", "PIL")}
     log(f"  optional modules: {present}, ninja: {shutil.which('ninja') or 'absent'}")
 
@@ -595,39 +887,72 @@ def main():
             f"{spills} bytes of spill stores")
 
     log("== phase 3: kernels against the plain version")
+    t_phase = time.perf_counter()
     kernels = check_kernels(ops)
+    log(f"  phase 3: {time.perf_counter() - t_phase:.1f} s")
 
     with tempfile.TemporaryDirectory() as out_root:
         log("== phase 4: main path A (davis_2, 704x1248, 16-frame windows)")
-        cfg_a, frames_a, launches_a = check_main_path(
-            "A", "davis_2", {"clustering": {"min_seediness_prob": 0.05}}, 26,
-            "cluster_points_tiled", 2, (26, 176, 312), out_root)
+        frames_a = synthetic_frames(26, 480, 854, seed=MAIN_SEED)
+        cfg_a, model_a, launches_a = check_main_path(
+            "A", "davis_2", {"clustering": {"min_seediness_prob": 0.05}}, "davis", frames_a,
+            "A", "cluster_points_tiled", 2, (26, 176, 312), out_root)
         log("== phase 5: main path B (davis_1, 480x854, 8-frame windows)")
         _, _, launches_b = check_main_path(
             "B", "davis_1", {"input": {"min_dim": 480, "max_dim": 854},
-                             "clustering": {"min_seediness_prob": 0.05}}, 16,
-            "cluster_points_single", 5, (16, 120, 216), out_root)
+                             "clustering": {"min_seediness_prob": 0.05}}, "davis",
+            synthetic_frames(16, 480, 854, seed=MAIN_SEED), "B", "cluster_points_single", 5,
+            (16, 120, 216), out_root)
         log("== phase 6: small input, GPU against CPU")
         check_small_input(out_root)
         log("== phase 7: steady state, main path A again (timing only)")
         t0 = time.perf_counter()
-        tg, *_ = run_main_path(cfg_a, frames_a, "A2", os.path.join(out_root, "A2"), MAIN_SEED)
+        tg = make_track_generator(cfg_a, "davis", model_a, os.path.join(out_root, "A2"))
+        run_main_path(tg, frames_a, "A2")
         log(f"  path A steady: wall {time.perf_counter() - t0:.3f} s")
         for line in tg.fps_report():
             log(f"  path A steady: {line}")
-        layer_split(tg, frames_a, kernels["cluster_points_tiled"]["ms"])
+        layer_split("A", tg, frames_a, 2, kernels["cluster_points_tiled"]["ms"])
         device_profile(tg, frames_a)
+        del tg, model_a
+        torch.cuda.empty_cache()
+
+        log("== phase 8: main path C (youtube_vis, 640x1152, 8-frame windows, semseg)")
+        t_phase = time.perf_counter()
+        frames_c = synthetic_frames(20, 720, 1280, seed=MAIN_SEED)
+        launches_c, real_c = semseg_path("C", "youtube_vis", "ytvis", frames_c, "C", 4,
+                                         (20, 160, 288), out_root, compare_heads=davis_heads())
+        log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 9: main path D (kitti_mots_2, 544x1792, xyt E=3, semseg argmax)")
+        t_phase = time.perf_counter()
+        launches_d, real_d = semseg_path("D", "kitti_mots_2", "kittimots",
+                                         synthetic_frames(16, 375, 1242, seed=MAIN_SEED),
+                                         "0002", 3, (16, 136, 448), out_root)
+        log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 10: main path C' (youtube_vis, --resize_embeddings, full-scale clustering)")
+        t_phase = time.perf_counter()
+        launches_c2, real_c2 = semseg_path("C'", "youtube_vis", "ytvis", frames_c[:8], "C2", 1,
+                                           (8, 640, 1152), out_root, resize_embeddings=True)
+        log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
-    launches = {"cluster_points_single": launches_b["cluster_points_single"],
-                "cluster_points_tiled": launches_a["cluster_points_tiled"]}
+    launches = {name: sum(run[name] for run in (launches_a, launches_b, launches_c,
+                                                launches_d, launches_c2))
+                for name in replaces}
+    launches_by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d,
+                        "C'": launches_c2}
+    kernels["cluster_points_tiled"]["real_windows"] = {"C": real_c["kernel_ms_real_window"],
+                                                       "D": real_d["kernel_ms_real_window"],
+                                                       "C'": real_c2["kernel_ms_real_window"]}
     keys = ("max_abs_err", "label_mismatches", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_ms_per_call", "cold_l2_ms", "sync_floor_ms", "iterations",
-            "points", "at_878592")
+            "points", "e_dims", "at_878592", f"at_{PATH_D_POINTS}_e3", f"at_{PATH_C2_POINTS}_e4",
+            "real_windows")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": "stemseg_tpu_torch/ops/csrc/cluster.cu",
          "replaces": replaces[name], "launches": launches[name], "library_ms": None,
+         "launches_by_path": {path: run[name] for path, run in launches_by_path.items()},
          **{k: row[k] for k in keys if k in row}}
         for name, row in kernels.items()]}
     log(f"== done in {time.perf_counter() - t_start:.1f} s")

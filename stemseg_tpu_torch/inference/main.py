@@ -1,15 +1,23 @@
 """Inference CLI: ``python -m stemseg_tpu_torch.inference.main CKPT.pth -o DIR
---dataset davis [--device cuda]``.
+--dataset {davis,ytvis,kittimots} [--resize_embeddings] [--device cuda]``.
 
 Per sequence: frame loading -> sliding-window engine (backbone + 3D heads)
--> per-window clustering + cross-window chaining -> DAVIS PNG writer, with
-the reference's fps report (model, clustering + postprocessing, overall).
-Frame I/O and output writing stay out of the timers; each timed phase ends
-in a device synchronise, so the report holds device time.
+-> per-window clustering + cross-window chaining -> the dataset's writer
+(DAVIS PNGs, YT-VIS ``results.json``, KITTI-MOTS txt), with the reference's
+fps report (model, clustering + postprocessing, overall). Frame I/O and
+output writing stay out of the timers; each timed phase ends in a device
+synchronise, so the report holds device time. After the last sequence the
+writer's ``save()`` runs (the YT-VIS json and zip, the KITTI-MOTS NMS).
+
+``--resize_embeddings`` (or a config trained with ``loss_at_full_res``)
+clusters at the network input scale: each window's semseg logits, and the
+embeddings, bandwidths and seediness handed to the clustering, are
+upscaled 4x trilinearly first.
 
 Config resolution: ``config.yaml`` beside the checkpoint if present, else
-the ``davis_2`` preset; CLI overrides for the input dims and the minimum
-seediness. Weights load from a reference ``.pth`` state dict.
+the dataset's preset (``davis_2``, ``youtube_vis``, ``kitti_mots_2``); CLI
+overrides for the input dims and the minimum seediness. Weights load from a
+reference ``.pth`` state dict.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 from stemseg_tpu_torch.config import Config, load_config, load_preset, merge
 from stemseg_tpu_torch.utils.timer import Timer
 
-DATASET_PRESETS = {"davis": "davis_2"}
+DATASET_PRESETS = {"davis": "davis_2", "ytvis": "youtube_vis", "kittimots": "kitti_mots_2"}
 FRAME_READERS = 4  # threads reading JPEGs
 
 
@@ -37,7 +45,8 @@ def load_inference_cfg(model_path: str, dataset: str, min_dim: Optional[int],
         cfg = load_config(cfg_file)
     else:
         if dataset not in DATASET_PRESETS:
-            raise ValueError(f"Invalid dataset {dataset!r}; this port runs 'davis'")
+            raise ValueError(f"Invalid dataset {dataset!r}; expected one of "
+                             f"{sorted(DATASET_PRESETS)}")
         print(f"Loading default preset {DATASET_PRESETS[dataset]}")
         cfg = load_preset(DATASET_PRESETS[dataset])
 
@@ -81,23 +90,32 @@ class TrackGenerator:
 
     def __init__(self, cfg: Config, dataset: str, model, output_generator,
                  max_tracks: int, seediness_thresh: float = 0.25,
-                 frame_overlap: int = -1):
+                 frame_overlap: int = -1, resize_embeddings: bool = False):
         from stemseg_tpu_torch.inference.chainer import OnlineChainer
         from stemseg_tpu_torch.inference.clustering import ClusterParams, cluster_window
         from stemseg_tpu_torch.inference.engine import InferenceEngine
         from stemseg_tpu_torch.models.embedding_utils import get_nb_free_dims
+        from stemseg_tpu_torch.models.layers import upsample_trilinear
 
-        if dataset != "davis":
-            raise ValueError(f"Invalid dataset {dataset!r}; this port runs 'davis'")
-        if cfg.training.loss_at_full_res:
-            raise NotImplementedError("full-resolution clustering is not ported yet")
+        overlaps = {"davis": cfg.data.davis.inference_frame_overlap,
+                    "ytvis": cfg.data.youtube_vis.inference_frame_overlap,
+                    "kittimots": cfg.data.kitti_mots.inference_frame_overlap}
+        if dataset not in overlaps:
+            raise ValueError(f"Invalid dataset {dataset!r}; expected one of {sorted(overlaps)}")
+        self.cluster_full_scale = cfg.training.loss_at_full_res or resize_embeddings
+        if self.cluster_full_scale and not cfg.model.use_semseg_head:
+            raise ValueError("full-scale clustering takes its fg masks from the semseg "
+                             "head; this config has none")
         self.cfg = cfg
+        self.dataset = dataset
         self.output_generator = output_generator
         self.max_tracks = max_tracks
         self.seediness_thresh = seediness_thresh
-        self.frame_overlap = (frame_overlap if frame_overlap > 0
-                              else cfg.data.davis.inference_frame_overlap)
-        self.engine = InferenceEngine(cfg, model)
+        self.frame_overlap = frame_overlap if frame_overlap > 0 else overlaps[dataset]
+        self.semseg_output_type = {"kittimots": "argmax", "ytvis": "logits"}.get(
+            dataset, "probs")
+        self.engine = InferenceEngine(
+            cfg, model, semseg_resize_scale=4.0 if self.cluster_full_scale else 1.0)
         self.device = self.engine.device
 
         ccfg = cfg.clustering
@@ -110,7 +128,13 @@ class TrackGenerator:
             free_dim_stds=tuple(cfg.training.losses.embedding.free_dim_stds),
             secondary_assignment=ccfg.secondary_assignment)
 
+        def upscale(x):  # [T, h, w, C] -> [T, 4h, 4w, C]
+            return upsample_trilinear(x.permute(3, 0, 1, 2)[None],
+                                      (1.0, 4.0, 4.0))[0].permute(1, 2, 3, 0)
+
         def cluster_fn(emb, bw, seed, fg_mask, label_start):
+            if self.cluster_full_scale:
+                emb, bw, seed = upscale(emb), upscale(bw), upscale(seed[..., None])[..., 0]
             return cluster_window(emb, bw, seed, fg_mask, self.cluster_params,
                                   label_start)
 
@@ -145,7 +169,8 @@ class TrackGenerator:
             frames.shape[0], self.cfg.input.num_frames, self.frame_overlap)
         out = self.engine.infer_sequence(
             frames, windows, resize_hw=(new_h, new_w),
-            seediness_fg_threshold=self.seediness_thresh)
+            seediness_fg_threshold=self.seediness_thresh,
+            semseg_output_type=self.semseg_output_type)
         _synchronize(self.device)
         return out
 
@@ -162,13 +187,14 @@ class TrackGenerator:
 
     def _process_loaded(self, sequence, frames: np.ndarray, image_hw, max_tracks: int):
         """One sequence of raw uint8 ``[T, H, W, 3]`` BGR frames through the
-        engine, the chainer and the writer. Returns the chainer's output:
-        (labels, counts, lifetimes, per-window ClusterResults)."""
+        engine, the chainer and the writer (with the multiclass masks on the
+        device, or None). Returns the chainer's output: (labels, counts,
+        lifetimes, per-window ClusterResults)."""
         out = self.do_inference(frames, image_hw)
         result = self.do_clustering(out)
         labels, counts, lifetimes, _ = result
         self.output_generator.process_sequence(
-            sequence, labels, counts, lifetimes, None, mask_scale=4,
+            sequence, labels, counts, lifetimes, out["multiclass_masks"], mask_scale=4,
             max_tracks=max_tracks, min_dim=self.cfg.input.min_dim,
             max_dim=self.cfg.input.max_dim)
         self.total_frames_processed += len(frames)
@@ -208,6 +234,9 @@ def main(argv=None):
     parser.add_argument("--seediness_thresh", "-st", type=float, default=0.25)
     parser.add_argument("--min_dim", type=int, required=False)
     parser.add_argument("--max_dim", type=int, required=False)
+    parser.add_argument("--resize_embeddings", action="store_true",
+                        help="cluster at the network input scale (4x trilinear "
+                             "upscale of each window's maps)")
     parser.add_argument("--min_seediness_prob", "-msp", type=float, required=False)
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain versions of "
@@ -215,8 +244,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from stemseg_tpu_torch.data.parsers import parse_generic_video_dataset
-    from stemseg_tpu_torch.data.paths import DavisUnsupervisedPaths
-    from stemseg_tpu_torch.inference.output_utils import DavisOutputGenerator
+    from stemseg_tpu_torch.data.paths import (
+        DavisUnsupervisedPaths,
+        KITTIMOTSPaths,
+        YoutubeVISPaths,
+    )
+    from stemseg_tpu_torch.inference.output_utils import (
+        DavisOutputGenerator,
+        KittiMOTSOutputGenerator,
+        YoutubeVISOutputGenerator,
+    )
 
     cfg = load_inference_cfg(args.model_path, args.dataset, args.min_dim,
                              args.max_dim, args.min_seediness_prob)
@@ -226,15 +263,34 @@ def main(argv=None):
         output_dir = os.path.join(os.path.dirname(args.model_path), output_dir)
     os.makedirs(output_dir, exist_ok=True)
 
-    sequences, _ = parse_generic_video_dataset(
-        DavisUnsupervisedPaths.trainval_base_dir(), DavisUnsupervisedPaths.val_vds_file())
+    upscaled = cfg.training.loss_at_full_res or args.resize_embeddings
+    if args.dataset == "davis":
+        sequences, _ = parse_generic_video_dataset(
+            DavisUnsupervisedPaths.trainval_base_dir(), DavisUnsupervisedPaths.val_vds_file())
+        output_generator = DavisOutputGenerator(output_dir, upscaled_inputs=upscaled,
+                                                device=args.device)
+        max_tracks = cfg.data.davis.max_inference_tracks
+    elif args.dataset == "ytvis":
+        sequences, _ = parse_generic_video_dataset(
+            YoutubeVISPaths.val_base_dir(), YoutubeVISPaths.val_vds_file())
+        output_generator = YoutubeVISOutputGenerator(output_dir, upscaled_inputs=upscaled,
+                                                     device=args.device)
+        max_tracks = cfg.data.youtube_vis.max_inference_tracks
+    else:
+        sequences, _ = parse_generic_video_dataset(
+            KITTIMOTSPaths.train_images_dir(), KITTIMOTSPaths.val_vds_file())
+        output_generator = KittiMOTSOutputGenerator(output_dir, upscaled_inputs=upscaled,
+                                                    device=args.device)
+        max_tracks = cfg.data.kitti_mots.max_inference_tracks
+
     model = load_model(cfg, args.model_path, device=args.device)
-    output_generator = DavisOutputGenerator(output_dir, device=args.device)
-    max_tracks = args.max_tracks or cfg.data.davis.max_inference_tracks
-    generator = TrackGenerator(cfg, args.dataset, model, output_generator, max_tracks,
+    generator = TrackGenerator(cfg, args.dataset, model, output_generator,
+                               args.max_tracks or max_tracks,
                                seediness_thresh=args.seediness_thresh,
-                               frame_overlap=args.frame_overlap)
+                               frame_overlap=args.frame_overlap,
+                               resize_embeddings=args.resize_embeddings)
     generator.start(sequences, args.seqs)
+    output_generator.save()
     print(f"Results saved to {output_dir}")
 
 

@@ -18,15 +18,18 @@ from stemseg_tpu_torch.inference.chainer import OUTLIER_LABEL
 from stemseg_tpu_torch.inference.output_utils.common import (
     masks_to_original_dims,
     select_instances_to_keep,
+    to_device,
 )
 from stemseg_tpu_torch.utils.device import resolve_device
 from stemseg_tpu_torch.utils.vis import create_color_map
 
 
 class DavisOutputGenerator:
-    def __init__(self, output_dir: str, device="cuda"):
-        """:param device: where the mask resize chain runs"""
+    def __init__(self, output_dir: str, upscaled_inputs: bool = False, device="cuda"):
+        """:param upscaled_inputs: labels come at the network input scale
+        :param device: where the mask resize chain runs"""
         self.results_output_dir = os.path.join(output_dir, "results")
+        self.upscaled_inputs = upscaled_inputs
         self.device = resolve_device(device)
 
     def process_sequence(self, sequence, track_labels: np.ndarray,
@@ -46,7 +49,7 @@ class DavisOutputGenerator:
         image_dims = tuple(sequence.image_dims)
         kept = select_instances_to_keep(instance_lifetimes, OUTLIER_LABEL, max_tracks)
         cmap = create_color_map().flatten()
-        labels_dev = torch.from_numpy(np.ascontiguousarray(track_labels)).to(self.device)
+        labels_dev = to_device(track_labels, self.device)
         kept_dev = torch.tensor(kept, dtype=labels_dev.dtype,
                                 device=self.device).view(-1, 1, 1)
 
@@ -57,10 +60,13 @@ class DavisOutputGenerator:
             if kept:
                 full = masks_to_original_dims(
                     labels_dev[t][None] == kept_dev, mask_scale, image_dims,
-                    min_dim, max_dim).cpu().numpy()
+                    min_dim, max_dim, self.upscaled_inputs).cpu().numpy()
                 for n in range(len(kept)):  # later kept ids overwrite
                     condensed[full[n]] = n + 1
             img = Image.fromarray(condensed)
             img.putpalette(cmap)
             img.save(os.path.join(seq_results_dir, f"{t:05d}.png"))
         return kept
+
+    def save(self):
+        """Nothing to gather: the PNGs are written per sequence."""

@@ -1,8 +1,8 @@
 """Model assembly: backbone (ResNet body + FPN) and the 3D heads.
 
 The module tree is named after the reference state dict (``backbone.body``,
-``backbone.fpn``, ``embedding_head``, ``seediness_head``), so a reference
-``.pth`` loads with ``load_state_dict`` and
+``backbone.fpn``, ``embedding_head``, ``seediness_head``, ``semseg_head``),
+so a reference ``.pth`` loads with ``load_state_dict`` and
 ``stemseg_tpu.models.converter.convert_state_dict`` maps ``state_dict()``
 into the JAX package's variables. The streaming engine calls the backbone
 once per frame and the heads once per window, so the model offers the two
@@ -17,7 +17,11 @@ import torch
 from torch import nn
 
 from stemseg_tpu_torch.config import Config
-from stemseg_tpu_torch.models.decoders import EmbeddingDecoder, SeedinessDecoder
+from stemseg_tpu_torch.models.decoders import (
+    EmbeddingDecoder,
+    SeedinessDecoder,
+    SemsegDecoder,
+)
 from stemseg_tpu_torch.models.fpn import FPN
 from stemseg_tpu_torch.models.resnet import STAGE_SPECS, ResNet
 from stemseg_tpu_torch.utils.device import resolve_device
@@ -34,15 +38,12 @@ class Backbone(nn.Module):
 
 
 class STEmSegModel(nn.Module):
-    """Backbone + FPN + embedding head (+ separate seediness head)."""
+    """Backbone + FPN + embedding head (seediness fused as its last channel,
+    or a separate seediness head) + optional semseg head."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         m = cfg.model
-        if m.use_semseg_head:
-            raise NotImplementedError(
-                "the semseg head is not ported yet; use a config with "
-                "use_semseg_head=false (the DAVIS presets)")
         r = m.resnets
         specs = STAGE_SPECS[m.backbone.type]
         body = ResNet(specs, num_groups=r.num_groups,
@@ -65,6 +66,12 @@ class STEmSegModel(nn.Module):
             c, tuple(s.inter_channels), num_frames=cfg.input.num_frames,
             norm_type=s.normalization_layer, gn_groups=s.gn_num_groups,
             pool_type=s.pool_type) if m.use_seediness_head else None
+        g = m.semseg
+        self.semseg_head = SemsegDecoder(
+            c, cfg.input.num_classes, tuple(g.inter_channels),
+            foreground_channel=g.foreground_channel, num_frames=cfg.input.num_frames,
+            norm_type=g.normalization_layer, gn_groups=g.gn_num_groups,
+            pool_type=g.pool_type) if m.use_semseg_head else None
 
     def backbone_features(self, frames: torch.Tensor) -> List[torch.Tensor]:
         """``[K, 3, H, W]`` preprocessed frames -> 4 maps, finest first."""
@@ -72,11 +79,13 @@ class STEmSegModel(nn.Module):
 
     def heads(self, clip_feats_coarsest_first: Sequence[torch.Tensor]):
         """4 clip maps ``[N, C, T, h_s, w_s]`` coarsest first ->
-        (embedding head output, seediness or None), both ``[N, C', T, h, w]``."""
-        emb = self.embedding_head(clip_feats_coarsest_first)
-        seed = (self.seediness_head(clip_feats_coarsest_first)
-                if self.seediness_head is not None else None)
-        return emb, seed
+        (embedding head output, seediness or None, semseg logits or None),
+        each ``[N, C', T, h, w]``."""
+        feats = clip_feats_coarsest_first
+        emb = self.embedding_head(feats)
+        seed = self.seediness_head(feats) if self.seediness_head is not None else None
+        semseg = self.semseg_head(feats) if self.semseg_head is not None else None
+        return emb, seed, semseg
 
 
 def build_model(cfg: Config, device="cuda") -> STEmSegModel:

@@ -1,6 +1,6 @@
-"""3D squeeze-expand decoders: the embedding head and the seediness head.
+"""3D squeeze-expand decoders: the embedding, seediness and semseg heads.
 
-Both heads share one topology over the 4 FPN maps lifted to clips
+All three heads share one topology over the 4 FPN maps lifted to clips
 ``[N, C, T, H, W]``, coarsest first:
 
 * per-scale "squeeze" blocks of Conv3d(3x3x3) + norm + ReLU + a temporal
@@ -165,3 +165,21 @@ class SeedinessDecoder(SqueezeExpandDecoder):
 
     def forward(self, feats_coarsest_first: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.sigmoid(self.conv_out(self.trunk(feats_coarsest_first)))
+
+
+class SemsegDecoder(SqueezeExpandDecoder):
+    """Semantic segmentation head (YT-VIS and KITTI-MOTS configs): trunk + a
+    bias-free ``conv_out`` with ``num_classes`` (+1 foreground) logit
+    channels, no activation."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 inter_channels: Tuple[int, int, int, int] = (256, 256, 128, 128),
+                 foreground_channel: bool = True, num_frames: int = 8,
+                 norm_type: str = "gn", gn_groups: int = 32, pool_type: str = "avg"):
+        super().__init__(in_channels, inter_channels, num_frames, norm_type,
+                         gn_groups, pool_type)
+        out_channels = num_classes + 1 if foreground_channel else num_classes
+        self.conv_out = make_conv(inter_channels[-1], out_channels, (1, 1, 1), bias=False)
+
+    def forward(self, feats_coarsest_first: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.conv_out(self.trunk(feats_coarsest_first))

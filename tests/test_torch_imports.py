@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_no_cuda_env(),
                          capture_output=True, text=True, timeout=300, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20
+    assert int(n) >= 25
     assert bad == "[]", bad
 
 
@@ -62,13 +62,26 @@ def _writer():
     DavisOutputGenerator("unused")
 
 
+def _ytvis_writer():
+    from stemseg_tpu_torch.inference.output_utils import YoutubeVISOutputGenerator
+
+    YoutubeVISOutputGenerator("unused")
+
+
+def _kitti_writer():
+    from stemseg_tpu_torch.inference.output_utils import KittiMOTSOutputGenerator
+
+    KittiMOTSOutputGenerator("unused")
+
+
 def _cli_model():
     from stemseg_tpu_torch.inference.main import load_model
 
     load_model(load_preset("davis_2"), "weights.pth")
 
 
-@pytest.mark.parametrize("entry", [_build_model, _writer, _cli_model])
+@pytest.mark.parametrize("entry", [_build_model, _writer, _ytvis_writer, _kitti_writer,
+                                   _cli_model])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

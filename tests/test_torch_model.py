@@ -1,7 +1,9 @@
-"""The port's model (ResNet body + FPN, embedding and seediness heads) against
-the JAX package's on the same weights, carried across with
+"""The port's model (ResNet body + FPN, embedding, seediness and semseg heads)
+against the JAX package's on the same weights, carried across with
 ``state_dict_from_jax``; and the exact round trip of that mapping through the
 JAX package's own checkpoint converter."""
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -113,62 +115,98 @@ def test_full_forward_matches_jax(models):
     with torch.no_grad():
         feats = model.backbone_features(torch.from_numpy(clip[0]).permute(0, 3, 1, 2))
         coarsest_first = [f.permute(1, 0, 2, 3)[None] for f in feats[::-1]]
-        emb, seed = model.heads(coarsest_first)
+        emb, seed, semseg = model.heads(coarsest_first)
+    assert semseg is None
     out = torch.cat([emb, seed], dim=1)[0].permute(1, 2, 3, 0).numpy()
     assert out.shape == ref.shape == (4, 16, 24, 4 + 2 + 1)
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=1e-4)
 
 
+def _flat(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            yield from _flat(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _assert_round_trip(model, variables):
+    back = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()})
+    for coll in ("params", "constants"):
+        got = {k: np.asarray(v) for k, v in _flat(back[coll])}
+        want = {k: np.asarray(v) for k, v in _flat(variables[coll])}
+        assert got.keys() == want.keys(), coll
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg="/".join(k))
+
+
 def test_state_dict_round_trip_is_exact(models):
     """``convert_state_dict(port.state_dict())`` reproduces the JAX tree."""
     _, _, variables, model = models
-    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    sd = model.state_dict()
     assert "backbone.body.layer3.5.conv2.weight" in sd
     assert "backbone.fpn.fpn_inner4.weight" in sd
     assert "embedding_head.block_32x.4.weight" in sd
     assert "embedding_head.conv_16.weight" in sd
     assert "seediness_head.conv_out.weight" in sd
     assert sd["embedding_head.time_scale"].shape == ()
-    back = convert_state_dict(sd)
-
-    def flat(tree, path=()):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from flat(v, path + (k,))
-            else:
-                yield path + (k,), np.asarray(v)
-
-    for coll in ("params", "constants"):
-        got = dict(flat(back[coll]))
-        want = dict(flat(variables[coll]))
-        assert got.keys() == want.keys(), coll
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k], err_msg="/".join(k))
+    _assert_round_trip(model, variables)
 
 
-def test_r101_state_dict_keys_map_to_jax():
-    """At the DAVIS preset's full R-101 layout the port's keys are exactly
-    the ones the JAX converter maps to the JAX model's variables."""
+@pytest.mark.parametrize("mode", ["xyff", "xyt"])
+def test_semseg_state_dict_round_trip_is_exact(mode):
+    """With a semseg head and the seediness fused into the embedding head."""
+    over = copy.deepcopy(SMALL)
+    over["input"]["num_classes"] = 4
+    over["model"].update(use_seediness_head=False, use_semseg_head=True,
+                         embedding_dim_mode=mode,
+                         semseg={"inter_channels": [32, 32, 24, 24], "gn_num_groups": 8})
+    if mode == "xyt":
+        over["model"]["embeddings"]["embedding_size"] = 3
+        over["training"] = {}
+    variables = random_variables(jax_build_model(jax_load_config(over), for_training=False),
+                                 (1, 4, 64, 96, 3), 7)
+    model = build_model(load_config(over), device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables))
+    sd = model.state_dict()
+    assert "seediness_head.conv_out.weight" not in sd
+    assert sd["embedding_head.conv_seediness.weight"].shape == (1, 16, 1, 1, 1)
+    assert sd["semseg_head.block_32x.0.weight"].shape == (32, 32, 3, 3, 3)
+    assert sd["semseg_head.block_8x.1.weight"].shape == (24,)  # GroupNorm
+    assert sd["semseg_head.conv_out.weight"].shape == (5, 24, 1, 1, 1)
+    _assert_round_trip(model, variables)
+
+
+def _check_r101_keys(preset):
     from stemseg_tpu.config import load_preset as jax_load_preset
     from stemseg_tpu_torch.config import load_preset
 
-    model = build_model(load_preset("davis_2"), device="cpu")
+    model = build_model(load_preset(preset), device="cpu")
     sd = model.state_dict()
     assert "backbone.body.layer3.22.conv2.weight" in sd
     shapes = {k: np.zeros((), np.float32) if v.dim() == 0 else np.zeros(v.shape, np.float32)
               for k, v in sd.items()}
     converted = convert_state_dict(shapes)
 
-    jmodel = jax_build_model(jax_load_preset("davis_2"), for_training=False)
+    jmodel = jax_build_model(jax_load_preset(preset), for_training=False)
     want = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
                           jnp.zeros((1, 16, 64, 96, 3), jnp.float32))
-
-    def shapes_of(tree, path=()):
-        for k, v in tree.items():
-            if isinstance(v, dict) or hasattr(v, "items"):
-                yield from shapes_of(v, path + (k,))
-            else:
-                yield path + (k,), tuple(np.shape(v))
-
     for coll in ("params", "constants"):
-        assert dict(shapes_of(converted[coll])) == dict(shapes_of(want[coll])), coll
+        got = {k: tuple(np.shape(v)) for k, v in _flat(converted[coll])}
+        assert got == {k: tuple(np.shape(v)) for k, v in _flat(want[coll])}, coll
+    return sd
+
+
+def test_r101_state_dict_keys_map_to_jax():
+    """At the DAVIS preset's full R-101 layout the port's keys are exactly
+    the ones the JAX converter maps to the JAX model's variables."""
+    _check_r101_keys("davis_2")
+
+
+def test_r101_youtube_vis_state_dict_keys_map_to_jax():
+    """The same at the ``youtube_vis`` preset: fused seediness and a semseg
+    head of (256, 256, 256, 256) channels with 41 + 1 logits."""
+    sd = _check_r101_keys("youtube_vis")
+    assert sd["semseg_head.block_4x.0.weight"].shape == (256, 256, 3, 3, 3)
+    assert sd["semseg_head.conv_out.weight"].shape == (42, 256, 1, 1, 1)
+    assert sd["embedding_head.conv_seediness.weight"].shape == (1, 128, 1, 1, 1)
