@@ -9,8 +9,8 @@ which raises on failure (the script then exits non-zero):
 3. kernels: ``cluster_points_single`` and ``cluster_points_tiled`` at
    207,360 and 878,592 points with E = 4, and at path D's 487,424 points
    with E = 3 and no free dims (the tiled one also at path C's 368,640, at
-   3,500,000 and at path C′'s 5,898,240 points, the last two beyond its
-   on-chip state) against their plain
+   train -> infer's 439,296, at 3,500,000 and at path C′'s 5,898,240
+   points, the last two beyond its on-chip state) against their plain
    PyTorch version on the same mixture-of-Gaussians inputs, both secondary
    modes and one case that exhausts K: labels exact except knife-edge
    points (plain ``exp(-0.5 d)`` within 1e-6 of a threshold, at most
@@ -44,7 +44,30 @@ which raises on failure (the script then exits non-zero):
    2, id / 1000 = class, mask 375x1242) and the NMS's ``results_nms/``;
 10. main path C′: ``youtube_vis`` with ``--resize_embeddings`` on 8 frames:
    one window clustered at the network input scale, 5,898,240 points with
-   the tiled kernel's state off chip.
+   the tiled kernel's state off chip;
+11. training path T: ``davis_1`` with ``training.mode: synthetic`` at full
+   width (R-101-FPN, heads (256, 256, 128, 128), 8-frame clips of
+   736x1248, E = 4, separate seediness head, 16 instance slots,
+   ``batch_size`` 2 = two micro-steps an update) through the port's
+   ``Trainer``: 4 optimizer steps with checkpoints every 2, then a new
+   ``Trainer`` that resumes (step count, weights and optimizer state equal
+   to what was saved) and takes 2 more; every loss finite, every trainable
+   tensor changed, the frozen stem and ``layer1`` unchanged. Then train ->
+   infer: the last ``.pth`` and its ``config.yaml`` through the inference
+   CLI's loaders and ``TrackGenerator`` on path B's frames, every window
+   through the clustering kernel its dispatch picks, the PNGs checked, the
+   kernel's output on the first window held against the plain version.
+   Timings: seconds per optimizer step in the trainer and for the step
+   alone, clips per second, the copy of a pinned micro-batch to the card, a
+   micro-step split by CUDA events, peak device memory, the loader's wait
+   per batch and a profiled device-busy share;
+12. training path T′: ``youtube_vis`` synthetic at full width (semseg head
+   of (256, 256, 256, 256) with 41 + 1 logits, fused seediness, 640x1196
+   clips padded to 640x1216): 2 optimizer steps, cross entropy and fg BCE
+   finite, every semseg-head tensor changed;
+13. one micro-step on the GPU against the CPU at the tests' small size
+   (DAVIS- and YT-VIS-shaped): loss terms within 1e-4 relative, gradients
+   within a per-leaf relative L2 of 1e-3, TF32 off.
 
 Paths C, D and C′ print the fps report of their checked run and of a
 second, steady run, and the device time of each layer (CUDA events). The
@@ -78,6 +101,20 @@ BEYOND_ON_CHIP = 3_500_000  # over both kernels' on-chip capacity at E = 4
 PATH_C_POINTS = 160 * 288 * 8  # youtube_vis window, E = 4
 PATH_D_POINTS = 136 * 448 * 8  # kitti_mots_2 window, E = 3
 PATH_C2_POINTS = 640 * 1152 * 8  # youtube_vis window at the network input scale
+PATH_T_POINTS = 176 * 312 * 8  # davis_1 at 736/1248 on path B's frames (train -> infer)
+TRAIN_WORKERS = 4  # loader worker processes of the training paths
+SMALL_TRAIN = {  # phase 13: the CPU tests' size
+    "input": {"num_frames": 2, "min_dim": 64, "max_dim": 96},
+    "model": {"backbone": {"type": "R-50-FPN"}, "embedding_dim_mode": "xyff",
+              "use_seediness_head": True, "use_semseg_head": False,
+              "resnets": {"backbone_out_channels": 32, "res2_out_channels": 32,
+                          "stem_out_channels": 16, "width_per_group": 8},
+              "embeddings": {"embedding_size": 4, "inter_channels": [32, 32, 16, 16],
+                             "gn_num_groups": 8},
+              "seediness": {"inter_channels": [32, 32, 16, 16], "gn_num_groups": 8}},
+    "training": {"mode": "synthetic",
+                 "losses": {"embedding": {"free_dim_stds": [0.3, 0.3]}}},
+}
 
 
 def log(*args):
@@ -417,7 +454,8 @@ def check_kernels(ops):
     results = {}
     for name, main_p, extra in (("cluster_points_single", 207_360, ()),
                                 ("cluster_points_tiled", 878_592,
-                                 (PATH_C_POINTS, BEYOND_ON_CHIP, PATH_C2_POINTS))):
+                                 (PATH_C_POINTS, PATH_T_POINTS, BEYOND_ON_CHIP,
+                                  PATH_C2_POINTS))):
         row = {"max_abs_err": 0.0, "label_mismatches": 0}
         shapes = [(p, 4, 2) for p in (207_360, 878_592) + extra] + [(PATH_D_POINTS, 3, 0)]
         for p, e, n_free in shapes:
@@ -842,6 +880,386 @@ def device_profile(tg, frames):
         log(f"  profile A: {us / 1e3:9.3f} ms  {name[:90]}")
 
 
+def training_cfg(preset, max_iterations):
+    from stemseg_tpu_torch.config import load_preset, merge
+
+    return merge(load_preset(preset), {"training": {"mode": "synthetic",
+                                                    "max_iterations": max_iterations}})
+
+
+def new_trainer(cfg, model_dir, *extra):
+    """The port's ``Trainer`` with the CLI's arguments (every optimizer step
+    logged and summarised)."""
+    from stemseg_tpu_torch.training.main import Trainer, make_parser
+
+    args = make_parser().parse_args(
+        ["--model_dir", model_dir, "--cfg", "unused", "--display_interval", "1",
+         "--summary_interval", "1", "--num_cpu_workers", str(TRAIN_WORKERS), *extra])
+    return Trainer(cfg, model_dir, args)
+
+
+def read_metrics(model_dir, keys):
+    """The trainer's ``metrics.jsonl``; raises unless every ``keys`` value of
+    every record is finite."""
+    import math
+
+    with open(os.path.join(model_dir, "logs", "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    for r in records:
+        if not all(k in r and math.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"{model_dir}: metrics {r}")
+    return records
+
+
+def changed_params(model, before, names=None):
+    """(trainable tensors unchanged, frozen tensors changed) against
+    ``before``; ``names`` limits the check."""
+    import torch
+
+    stale, moved = [], []
+    for name, p in model.named_parameters():
+        if names is not None and not name.startswith(names):
+            continue
+        same = torch.equal(p.detach(), before[name])
+        if p.requires_grad and same:
+            stale.append(name)
+        elif not p.requires_grad and not same:
+            moved.append(name)
+    return stale, moved
+
+
+def steady_intervals(trainer, skip):
+    """Host seconds between the trainer's optimizer-step ends, the first
+    ``skip`` intervals left out."""
+    t = trainer.iteration_end_times
+    return [b - a for a, b in zip(t[:-1], t[1:])][skip:]
+
+
+def assert_full_width(tag, cfg):
+    """Path T: R-101-FPN, heads (256, 256, 128, 128), 8 frames of 736x1248,
+    E = 4 ``xyff``, seediness head, 16 instance slots, 2 clips an update.
+    Path T': semseg head (256, 256, 256, 256) with 41 + 1 logits, fused
+    seediness, 640x1196 padded to 640x1216."""
+    from stemseg_tpu_torch.config import resolve_max_instances
+    from stemseg_tpu_torch.structures.geometry import pad_to_multiple
+
+    m = cfg.model
+    if tag == "T":
+        got = (m.backbone.type, tuple(m.embeddings.inter_channels), cfg.input.num_frames,
+               cfg.input.min_dim, cfg.input.max_dim, m.embeddings.embedding_size,
+               m.embedding_dim_mode, m.use_seediness_head, resolve_max_instances(cfg),
+               cfg.training.batch_size)
+        want = ("R-101-FPN", (256, 256, 128, 128), 8, 736, 1248, 4, "xyff", True, 16, 2)
+    else:
+        got = (m.backbone.type, tuple(m.semseg.inter_channels), cfg.input.num_classes,
+               pad_to_multiple(cfg.input.min_dim, cfg.input.max_dim), m.use_seediness_head)
+        want = ("R-101-FPN", (256, 256, 256, 256), 41, (640, 1216), False)
+    if got != want:
+        raise AssertionError(f"path {tag}: not at the preset's full width: {got}")
+
+
+def train_path_t(out_root):
+    """Phase 11: 4 steps, resume, 2 more; returns the resumed trainer and the
+    run's numbers."""
+    import torch
+
+    model_dir = os.path.join(out_root, "T")
+    cfg = training_cfg("davis_1", 4)
+    assert_full_width("T", cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = new_trainer(cfg, model_dir, "--save_interval", "2")
+    init = {k: v.detach().clone() for k, v in first.model.state_dict().items()}
+    first.start()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    keys = ("total", "lovasz", "var_smoothness", "seediness", "total_embedding", "grad_norm")
+    records = read_metrics(model_dir, keys)
+    stale, moved = changed_params(first.model, init)
+    frozen = [n for n, p in first.model.named_parameters() if not p.requires_grad]
+    if [r["step"] for r in records] != [1, 2, 3, 4] or stale or moved or not frozen \
+            or not all(n.startswith(("backbone.body.stem.", "backbone.body.layer1."))
+                       for n in frozen):
+        raise AssertionError(f"path T: steps {[r['step'] for r in records]}, unchanged "
+                             f"trainable {stale[:3]}, changed frozen {moved[:3]}")
+    ckpts = sorted(f for f in os.listdir(model_dir) if f.endswith(".pth"))
+    if ckpts != ["000002.pth", "000004.pth"]:
+        raise AssertionError(f"path T: checkpoints {ckpts}")
+    log(f"  path T: {first.accumulate_steps} micro-steps an update, 4 steps in {wall:.3f} s "
+        f"(build and first-step set-up included), peak device memory {peak_gib:.2f} GiB; "
+        f"{len(frozen)} frozen tensors unchanged, all "
+        f"{sum(p.requires_grad for p in first.model.parameters())} trainable changed")
+    for r in records:
+        log(f"  path T step {r['step']}: " + ", ".join(f"{k} {r[k]:.5f}" for k in keys))
+
+    resumed = new_trainer(training_cfg("davis_1", 6), model_dir, "--save_interval", "2")
+    opt_a, opt_b = first.optimizer.state_dict(), resumed.optimizer.state_dict()
+    model_a, model_b = first.model.state_dict(), resumed.model.state_dict()
+    same = (resumed.elapsed_iterations == 4 and resumed.scheduler.last_epoch == 4
+            and all(torch.equal(model_a[k], model_b[k]) for k in model_a)
+            and opt_a["state"].keys() == opt_b["state"].keys()
+            and all(torch.equal(opt_a["state"][i]["momentum_buffer"],
+                                opt_b["state"][i]["momentum_buffer"]) for i in opt_a["state"]))
+    if not same:
+        raise AssertionError(f"path T: the resumed session differs from the saved one "
+                             f"(step {resumed.elapsed_iterations})")
+    waits_first = list(first.loader_waits)
+    intervals_first = steady_intervals(first, 1)
+    del first, init, opt_a, opt_b, model_a, model_b
+    torch.cuda.empty_cache()
+    resumed.start()
+    records = read_metrics(model_dir, keys)
+    if [r["step"] for r in records][-2:] != [5, 6] or resumed.elapsed_iterations != 6:
+        raise AssertionError(f"path T resumed: steps {[r['step'] for r in records]}")
+    log("  path T: resumed at step 4 with the saved weights, momentum buffers and LR "
+        "step; 2 more steps: " + "; ".join(
+            f"step {r['step']} total {r['total']:.5f}" for r in records[-2:]))
+    # each trainer's first wait is its loader's start-up
+    firsts = [waits_first[0], resumed.loader_waits[0]]
+    steady = waits_first[1:] + list(resumed.loader_waits[1:])
+    stats = {"trainer_intervals_s": intervals_first + steady_intervals(resumed, 0),
+             "loader_wait_firsts_s": firsts,
+             "loader_wait_mean_s": sum(steady) / max(len(steady), 1),
+             "loader_wait_max_s": max(steady, default=0.0),
+             "peak_gib_first_run": peak_gib}
+    log(f"  path T: trainer step intervals {['%.4f' % s for s in stats['trainer_intervals_s']]} s "
+        f"(the first after a checkpoint includes its save); loader wait per batch after the "
+        f"first {stats['loader_wait_mean_s'] * 1e3:.3f} ms mean, "
+        f"{stats['loader_wait_max_s'] * 1e3:.3f} ms max over {len(steady)} batches; the "
+        f"first of each trainer {['%.3f' % s for s in firsts]} s")
+    return resumed, stats
+
+
+def placed_batches(trainer, n):
+    """``n`` synthetic batches of the trainer's config on its device."""
+    from stemseg_tpu_torch.config import resolve_max_instances
+    from stemseg_tpu_torch.training.datasets import create_training_dataset
+    from stemseg_tpu_torch.training.loader import collate_batch, to_device
+
+    ds = create_training_dataset(trainer.cfg, n * trainer.samples_per_step,
+                                 print_fn=lambda *a: None)
+    k = trainer.samples_per_step
+    return [to_device(collate_batch(
+        [ds[i * k + j] for j in range(k)], resolve_max_instances(trainer.cfg),
+        overflow=trainer.cfg.training.instance_overflow), trainer.device) for i in range(n)]
+
+
+def micro_step_split(step, batch):
+    """Device ms of one micro-step's parts (CUDA events); the optimizer
+    update runs when it is due."""
+    import torch
+
+    from stemseg_tpu_torch.training.optim import global_norm
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    ev[0].record()
+    feats = step.model.clip_features(batch["images"].permute(0, 1, 4, 2, 3))
+    ev[1].record()
+    out = step.model.clip_heads(feats)
+    ev[2].record()
+    total, _ = step.loss_fn(out, batch)
+    ev[3].record()
+    grads = torch.autograd.grad(total, step.params, allow_unused=True, materialize_grads=True)
+    ev[4].record()
+    global_norm(grads)
+    step.accumulate(grads)
+    ev[5].record()
+    step.update()
+    ev[6].record()
+    torch.cuda.synchronize()
+    names = ("backbone+FPN forward", "heads forward", "targets + losses", "backward",
+             "grad norm + accumulate", "optimizer update")
+    return dict(zip(names, (ev[i].elapsed_time(ev[i + 1]) for i in range(6))))
+
+
+def training_timings(tag, trainer, smi, n_steps=3):
+    """Steady step time of ``trainer.train_step`` on batches already on the
+    device, the micro-step split, and a profiled device-busy share over 2
+    optimizer steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from stemseg_tpu_torch.training.loader import to_device
+
+    step = trainer.train_step
+    acc = trainer.accumulate_steps
+    batches = placed_batches(trainer, 2)
+    for k in range(acc):  # warm, and ends on an update
+        step(batches[k % 2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n_steps * acc):
+        step(batches[k % 2])
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / n_steps
+    clips = acc * trainer.samples_per_step
+    log(f"  {tag} timing ({smi}): {s_per_step:.4f} s per optimizer step of {clips} clips "
+        f"({clips / s_per_step:.3f} clips/s), step alone, batches on the device")
+    pinned = {k: v.cpu().pin_memory() for k, v in batches[0].items()}
+    h2d_ms = time_cuda(lambda: to_device(pinned, trainer.device), 5, warmup=1)
+    h2d_mb = sum(v.numel() * v.element_size() for v in pinned.values()) / 1e6
+    log(f"  {tag} H2D ({smi}): {h2d_ms:.3f} ms for one micro-batch of {h2d_mb:.1f} MB from "
+        f"pinned memory ({h2d_mb / h2d_ms:.3f} GB/s)")
+    del pinned
+
+    parts = {}
+    for k in range(acc):  # one optimizer step
+        for name, ms in micro_step_split(step, batches[k % 2]).items():
+            parts[name] = parts.get(name, 0.0) + ms
+    for name, ms in parts.items():
+        per = "optimizer step" if name == "optimizer update" else "micro-step"
+        value = ms if per == "optimizer step" else ms / acc
+        log(f"  {tag} split ({smi}): {name:24s} {value:9.3f} ms a {per}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(2 * acc):
+            step(batches[k % 2])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    if not by_name:
+        raise RuntimeError(f"{tag}: torch.profiler recorded no device event")
+    log(f"  {tag} profile ({smi}): 2 optimizer steps, wall {wall_us / 1e3:.3f} ms "
+        f"(profiled), device busy {busy_us / 1e3:.3f} ms = {busy_us / wall_us:.3f} of the wall")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  {tag} profile: {us / 1e3:9.3f} ms  {name[:90]}")
+    return {"s_per_step": s_per_step, "clips_per_s": clips / s_per_step, "h2d_ms": h2d_ms,
+            "split_ms": parts, "busy_share": busy_us / wall_us}
+
+
+def train_then_infer(trainer, frames, out_root):
+    """The trainer's last ``.pth`` and ``config.yaml`` through the inference
+    CLI's loaders and ``TrackGenerator`` into the DAVIS writer; every window
+    through the kernel the dispatch picks, the first window's kernel output
+    held against the plain version. Returns the launch counts and (the
+    kernel, its ms on the first window's inputs)."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.inference.main import load_inference_cfg, load_model
+    from stemseg_tpu_torch.inference.windows import get_subsequence_frames
+    from stemseg_tpu_torch.ops.cluster import single_block_supported
+    from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
+
+    ckpt = find_latest_checkpoint(trainer.model_dir)
+    cfg = load_inference_cfg(ckpt, "davis", None, None, 0.05)
+    model = load_model(cfg, ckpt, device="cuda")
+    tg = make_track_generator(cfg, "davis", model, os.path.join(out_root, "T_infer"))
+    labels, counts, metas, launches = run_main_path(tg, frames, "T")
+    n_windows = len(get_subsequence_frames(len(frames), cfg.input.num_frames,
+                                           tg.frame_overlap))
+    n_points = int(np.prod(metas[0].labels.shape))
+    kernel = ("cluster_points_single" if single_block_supported(
+        n_points, cfg.clustering.max_instances, cfg.model.embeddings.embedding_size)
+        else "cluster_points_tiled")
+    other = ({"cluster_points_single", "cluster_points_tiled"} - {kernel}).pop()
+    if launches[kernel] != n_windows or launches[other] or launches["cluster_points_reference"]:
+        raise AssertionError(f"train -> infer: launches {launches}, expected {n_windows} "
+                             f"of {kernel}")
+    written = check_outputs("T", tg, os.path.join(out_root, "T_infer"), "T", frames)
+    log(f"  train -> infer: {os.path.basename(ckpt)} + config.yaml ({cfg.input.min_dim}/"
+        f"{cfg.input.max_dim}), {len(frames)} frames of {frames.shape[1]}x{frames.shape[2]}: "
+        f"{len(metas)} windows of {n_points} points through {kernel}, labels "
+        f"{tuple(labels.shape)}, {len(counts) - 1} tracks, clusters per window "
+        f"{[int(m.valid.sum()) for m in metas]}, {written}; launches {launches}")
+    window_ms, kernel_ms, shape = window_cluster_ms(tg, frames)
+    if shape[0] != n_points:
+        raise AssertionError(f"train -> infer: first window of {tuple(shape)}, expected "
+                             f"{n_points} points")
+    log(f"  train -> infer: {kernel} on the first window's inputs {tuple(shape)}: "
+        f"{kernel_ms:.4f} ms; the window's whole clustering step {window_ms:.4f} ms")
+    del model, tg
+    torch.cuda.empty_cache()
+    return launches, (kernel, kernel_ms)
+
+
+def train_path_t2(out_root, smi):
+    """Phase 12: ``youtube_vis`` synthetic, 2 optimizer steps."""
+    import torch
+
+    from stemseg_tpu_torch.structures.geometry import pad_to_multiple
+
+    cfg = training_cfg("youtube_vis", 2)
+    assert_full_width("T'", cfg)
+    padded = pad_to_multiple(cfg.input.min_dim, cfg.input.max_dim)
+    model_dir = os.path.join(out_root, "T2")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = new_trainer(cfg, model_dir, "--save_interval", "1000")
+    head = "semseg_head."
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()
+              if k.startswith(head)}
+    t0 = time.perf_counter()
+    trainer.start()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    records = read_metrics(model_dir, ("total", "semseg", "fg", "lovasz", "seediness"))
+    stale, _ = changed_params(trainer.model, before, names=head)
+    if len(records) != 2 or stale:
+        raise AssertionError(f"path T': {len(records)} steps, unchanged {stale[:3]}")
+    interval = steady_intervals(trainer, 0)
+    log(f"  path T': {cfg.input.min_dim}x{cfg.input.max_dim} padded {padded[0]}x{padded[1]}, "
+        f"41 + 1 logits; 2 steps in {wall:.3f} s (first-step set-up included), step 2 "
+        f"{interval[0]:.4f} s ({smi}), peak device memory {peak_gib:.2f} GiB; every "
+        f"semseg-head tensor changed")
+    for r in records:
+        log(f"  path T' step {r['step']}: " + ", ".join(
+            f"{k} {r[k]:.5f}" for k in ("total", "semseg", "fg", "lovasz", "seediness")))
+    return {"step2_s": interval[0], "peak_gib": peak_gib}
+
+
+def check_train_step_gpu_vs_cpu():
+    """Phase 13: one micro-step of the same weights and batch on both
+    devices, DAVIS- and YT-VIS-shaped."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_config, resolve_max_instances
+    from stemseg_tpu_torch.data.collate import collate_fn
+    from stemseg_tpu_torch.data.synthetic import SyntheticBlobDataset
+    from stemseg_tpu_torch.models import build_model, init_random_weights
+    from stemseg_tpu_torch.training.optim import make_optimizer, trainable_parameters
+    from stemseg_tpu_torch.training.step import TrainStep
+
+    semseg = copy.deepcopy(SMALL_TRAIN)
+    semseg["input"]["num_classes"] = 4
+    semseg["model"].update(use_seediness_head=False, use_semseg_head=True,
+                           semseg={"inter_channels": [32, 32, 24, 24], "gn_num_groups": 8})
+    for tag, over in (("davis", SMALL_TRAIN), ("ytvis", semseg)):
+        cfg = load_config(over)
+        sample = SyntheticBlobDataset(cfg.input, 2, max_instances=3, seed=2)[1]
+        sample["category_ids"] = np.arange(1, len(sample["category_ids"]) + 1, dtype=np.int32)
+        host = collate_fn([sample], resolve_max_instances(cfg))
+        results = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, device=dev, for_training=True)
+            init_random_weights(model, 3)
+            step = TrainStep(model, cfg, *make_optimizer(cfg.training,
+                                                         trainable_parameters(model)),
+                             accumulate_steps=2)
+            batch = {k: torch.from_numpy(host[k]).to(dev)
+                     for k in ("images", "masks", "ignore_masks", "category_ids")}
+            metrics = {k: float(v) for k, v in step(batch).items()}
+            results[dev] = (metrics, {n: p.grad.double().cpu() for n, p in
+                                      model.named_parameters() if p.requires_grad})
+        (m_cpu, g_cpu), (m_gpu, g_gpu) = results["cpu"], results["cuda"]
+        loss_err = max(abs(m_gpu[k] - v) / abs(v) if v else abs(m_gpu[k]) for k, v in m_cpu.items())
+        grad_err = max(float((g_gpu[n] - g).norm() / g.norm().clamp(min=1e-30))
+                       for n, g in g_cpu.items())
+        log(f"  micro-step {tag}: GPU vs CPU, loss terms max relative error {loss_err:.3g} "
+            f"({', '.join(f'{k} {v:.5f}' for k, v in m_cpu.items())}), gradients max per-leaf "
+            f"relative L2 {grad_err:.3g} over {len(g_cpu)} tensors")
+        if not loss_err <= 1e-4 or not grad_err <= 1e-3:
+            raise AssertionError(f"micro-step {tag}: loss error {loss_err}, grad error {grad_err}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "stemseg_tpu_torch")):
         sys.stderr.write("chip_smoke: run it from the root of a checkout\n")
@@ -934,17 +1352,37 @@ def main():
         launches_c2, real_c2 = semseg_path("C'", "youtube_vis", "ytvis", frames_c[:8], "C2", 1,
                                            (8, 640, 1152), out_root, resize_embeddings=True)
         log(f"  phase 10: {time.perf_counter() - t_phase:.1f} s")
+        del frames_c
+        torch.cuda.empty_cache()
+
+        log("== phase 11: training path T (davis_1 synthetic, R-101-FPN, 8x736x1248 clips)")
+        t_phase = time.perf_counter()
+        trainer_t, _ = train_path_t(out_root)
+        training_timings("path T", trainer_t, smi)
+        launches_t, real_t = train_then_infer(
+            trainer_t, synthetic_frames(16, 480, 854, seed=MAIN_SEED), out_root)
+        del trainer_t
+        torch.cuda.empty_cache()
+        log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 12: training path T' (youtube_vis synthetic, semseg 41 + 1, 640x1216)")
+        t_phase = time.perf_counter()
+        train_path_t2(out_root, smi)
+        torch.cuda.empty_cache()
+        log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 13: one micro-step, GPU against CPU (small size, TF32 off)")
+        check_train_step_gpu_vs_cpu()
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
     launches = {name: sum(run[name] for run in (launches_a, launches_b, launches_c,
-                                                launches_d, launches_c2))
+                                                launches_d, launches_c2, launches_t))
                 for name in replaces}
     launches_by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d,
-                        "C'": launches_c2}
+                        "C'": launches_c2, "T": launches_t}
     kernels["cluster_points_tiled"]["real_windows"] = {"C": real_c["kernel_ms_real_window"],
                                                        "D": real_d["kernel_ms_real_window"],
                                                        "C'": real_c2["kernel_ms_real_window"]}
+    kernels[real_t[0]].setdefault("real_windows", {})["T"] = real_t[1]
     keys = ("max_abs_err", "label_mismatches", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_ms_per_call", "cold_l2_ms", "sync_floor_ms", "iterations",
             "points", "e_dims", "at_878592", f"at_{PATH_D_POINTS}_e3", f"at_{PATH_C2_POINTS}_e4",

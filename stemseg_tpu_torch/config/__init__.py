@@ -3,5 +3,7 @@ from stemseg_tpu_torch.config.config import (  # noqa: F401
     load_config,
     load_preset,
     merge,
+    resolve_max_instances,
+    save_config,
     to_dict,
 )

@@ -279,6 +279,24 @@ class Config:
     clustering: ClusteringConfig = field(default_factory=ClusteringConfig)
 
 
+def resolve_max_instances(cfg: Config) -> int:
+    """Instance-axis pad size of training batches: ``training.max_instances``
+    when set (> 0); else 30 for kitti_mots (Mapillary keeps up to 30
+    instances an image) and 16 for the other modes."""
+    if cfg.training.max_instances > 0:
+        return cfg.training.max_instances
+    return 30 if cfg.training.mode == "kitti_mots" else 16
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as YAML (the ``config.yaml`` the inference CLI reads
+    beside a checkpoint, and the JAX package's ``load_config`` too)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(to_dict(cfg), f, sort_keys=False)
+
+
 def load_config(path_or_overrides, base: Optional[Config] = None) -> Config:
     """Build a ``Config`` from a mapping of overrides, a ``.json`` file or a
     ``.yaml`` file, merged strictly on top of ``base`` (or the defaults)."""

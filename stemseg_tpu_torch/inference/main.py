@@ -17,7 +17,9 @@ upscaled 4x trilinearly first.
 Config resolution: ``config.yaml`` beside the checkpoint if present, else
 the dataset's preset (``davis_2``, ``youtube_vis``, ``kitti_mots_2``); CLI
 overrides for the input dims and the minimum seediness. Weights load from a
-reference ``.pth`` state dict.
+``.pth``: a reference state dict, or a checkpoint of the port's trainer
+(its ``"model"`` entry), so the trainer's model dir (``{iter:06d}.pth``
+beside its ``config.yaml``) is read as it is.
 """
 
 from __future__ import annotations
@@ -68,12 +70,14 @@ def load_inference_cfg(model_path: str, dataset: str, min_dim: Optional[int],
 
 
 def load_model(cfg: Config, model_path: str, device="cuda"):
-    """Build the model on ``device`` and load a reference ``.pth``."""
+    """Build the model on ``device`` and load a reference ``.pth`` or a
+    checkpoint of the port's trainer."""
     from stemseg_tpu_torch.models import build_model, load_state_dict_file
+    from stemseg_tpu_torch.models.weights import refuse_jax_checkpoint
 
+    refuse_jax_checkpoint(model_path)
     if not model_path.endswith(".pth"):
-        raise ValueError("this port loads reference .pth state dicts; the JAX "
-                         "package's .ckpt format is not read yet")
+        raise ValueError(f"{model_path}: expected a .pth state dict or trainer checkpoint")
     model = build_model(cfg, device=device)
     model.load_state_dict(load_state_dict_file(model_path))
     return model

@@ -81,11 +81,20 @@ def state_dict_from_jax(variables: Mapping[str, Mapping]) -> Dict[str, torch.Ten
     return out
 
 
+def refuse_jax_checkpoint(path: str) -> None:
+    """The JAX package's ``.ckpt`` (flax msgpack) is not read by the port."""
+    if path.endswith(".ckpt"):
+        raise NotImplementedError(
+            f"{path}: the JAX package's .ckpt (flax msgpack) is not read by this port "
+            "yet (ROADMAP A13); pass a .pth")
+
+
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference ``.pth`` (a state dict, or a training checkpoint with
     the state dict under ``'model'``) into the port's key space: DDP
     ``module.`` prefixes are dropped, and so are loss-criterion buffers,
-    which the config derives."""
+    which the config derives. A JAX ``.ckpt`` is refused."""
+    refuse_jax_checkpoint(path)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
         ckpt = ckpt["model"]

@@ -26,6 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(stemseg_tpu_torch.__path__, "stem
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "stemseg_tpu"))
+assert {"stemseg_tpu_torch.losses.lovasz", "stemseg_tpu_torch.training.main",
+        "stemseg_tpu_torch.data.synthetic"} <= set(names)
 print(len(names), bad)
 """
 
@@ -40,7 +42,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_no_cuda_env(),
                          capture_output=True, text=True, timeout=300, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 25
+    assert int(n) >= 54
     assert bad == "[]", bad
 
 
@@ -80,8 +82,21 @@ def _cli_model():
     load_model(load_preset("davis_2"), "weights.pth")
 
 
+def _trainer():
+    from stemseg_tpu_torch.training.main import Trainer, make_parser
+
+    args = make_parser().parse_args(["--model_dir", "unused", "--cfg", "davis_1"])
+    Trainer(load_preset("davis_1"), "unused", args)
+
+
+def _trainer_cli():
+    from stemseg_tpu_torch.training.main import main
+
+    main(["--model_dir", "unused", "--cfg", "davis_1"])
+
+
 @pytest.mark.parametrize("entry", [_build_model, _writer, _ytvis_writer, _kitti_writer,
-                                   _cli_model])
+                                   _cli_model, _trainer, _trainer_cli])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
