@@ -67,7 +67,28 @@ which raises on failure (the script then exits non-zero):
    finite, every semseg-head tensor changed;
 13. one micro-step on the GPU against the CPU at the tests' small size
    (DAVIS- and YT-VIS-shaped): loss terms within 1e-4 relative, gradients
-   within a per-leaf relative L2 of 1e-3, TF32 off.
+   within a per-leaf relative L2 of 1e-3, TF32 off;
+14. training path R: the six training datasets written to a temporary
+   directory in their own layouts and frame sizes
+   (``write_training_datasets``: textured JPEG frames, the project JSON
+   with RLE masks) and the dataset environment variables set; each
+   loader's host ms per clip (median of 5, one process); each mode's
+   loader rate through 4 workers;
+   ``create_training_dataset`` at ``davis_1``'s 50,000 steps; then
+   ``davis_1`` in its own ``davis`` mode (COCO + YT-VIS + DAVIS + VOC) at
+   path T's full width through the ``Trainer``: 4 optimizer steps, every
+   loss finite, every trainable tensor changed and no frozen one,
+   checkpoints at 2 and 4, clips from at least two of the datasets; step
+   intervals with each step's padded clip shapes, loader waits, peak
+   memory, the H2D copy of a micro-batch. Train -> infer: the checkpoint
+   through the inference CLI (``main``, ``--dataset davis``) on the
+   written ``davis_val.json``, every window through the clustering kernel
+   its dispatch picks, the PNGs checked, the first window's kernel output
+   held against the plain version;
+15. training paths R′ (``youtube_vis`` in its own mode: COCO + VOC +
+   YT-VIS, 41 classes; 4 steps, since VOC's 0.1 of 4 clips rounds to 0)
+   and R″ (``kitti_mots_2``: KITTI-MOTS, 544x1792, 30 instance slots, the
+   category-3 ignore masks; 2 steps), with phase 14's checks and numbers.
 
 Paths C, D and C′ print the fps report of their checked run and of a
 second, steady run, and the device time of each layer (CUDA events). The
@@ -103,6 +124,9 @@ PATH_D_POINTS = 136 * 448 * 8  # kitti_mots_2 window, E = 3
 PATH_C2_POINTS = 640 * 1152 * 8  # youtube_vis window at the network input scale
 PATH_T_POINTS = 176 * 312 * 8  # davis_1 at 736/1248 on path B's frames (train -> infer)
 TRAIN_WORKERS = 4  # loader worker processes of the training paths
+TRAIN_DATA_SHAPES = {  # frame (height, width) of each training dataset as it ships
+    "coco": (480, 640), "pascal_voc": (375, 500), "youtube_vis": (720, 1280),
+    "davis": (480, 854), "kitti_mots": (375, 1242), "mapillary": (1080, 1920)}
 SMALL_TRAIN = {  # phase 13: the CPU tests' size
     "input": {"num_frames": 2, "min_dim": 64, "max_dim": 96},
     "model": {"backbone": {"type": "R-50-FPN"}, "embedding_dim_mode": "xyff",
@@ -148,6 +172,157 @@ def synthetic_frames(n, h, w, seed):
             f[(yy - cy - vy * t) ** 2 + (xx - cx - vx * t) ** 2 < r * r] = col
         frames[t] = np.clip(f + rng.randn(h, w, 3) * 6, 0, 255).astype(np.uint8)
     return frames
+
+
+def texture(rng, h, w):
+    """Smooth colour noise with stripes and grain, BGR uint8: a JPEG of it is
+    about as large, and as slow to decode, as a photograph's."""
+    import cv2
+    import numpy as np
+
+    low = rng.randint(0, 256, (max(2, h // 24), max(2, w // 24), 3)).astype(np.uint8)
+    img = cv2.resize(low, (w, h), interpolation=cv2.INTER_CUBIC).astype(np.float32)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    img += (20 * np.sin(xx * rng.uniform(0.05, 0.3) + yy * rng.uniform(0.05, 0.3)))[..., None]
+    img += rng.randint(-12, 13, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_training_datasets(root, seed=MAIN_SEED, shapes=None):
+    """The six training datasets, each in its own on-disk layout (JPEG
+    frames, the project JSON with RLE masks) at its frame size
+    (``TRAIN_DATA_SHAPES``, or ``shapes``), textured frames with moving
+    ellipses, from ``seed``. Returns the environment variables that point
+    the loaders at them:
+
+    * COCO: 8 images, 1-6 instances, some of categories no mode keeps;
+    * Pascal VOC: 8 images, some instances under the 50-pixel minimum, the
+      boundary band of the instances as the ignore RLE;
+    * YouTube-VIS ``train/``: 3 sequences of 20-24 frames, 1-3 instances
+      (one single-instance sequence), a frame without instances;
+    * DAVIS: 3 sequences of 40-44 frames, 1-4 instances (one
+      single-instance), empty frames; and ``davis_val.json``, 16 frames of
+      one of them, for inference;
+    * KITTI-MOTS: cars (1), pedestrians (2) and an ignore region (3), a gap
+      of 7 frames with only the ignore region, and a sequence without one;
+    * Mapillary: 3 images with 45 instances each, about 36 of them cars and
+      persons (every 15th under the 30-pixel minimum), the rest of ignore
+      categories or of categories the loader drops."""
+    import cv2
+    import numpy as np
+
+    from stemseg_tpu_torch.utils import rle
+
+    shapes = dict(TRAIN_DATA_SHAPES, **(shapes or {}))
+    rng = np.random.RandomState(seed)
+    ann = os.path.join(root, "annotations")
+    os.makedirs(ann)
+    env = {"STEMSEG_JSON_ANNOTATIONS_DIR": ann}
+
+    def rle_str(mask):
+        return rle.encode(mask)["counts"].decode("utf-8")
+
+    def blob(h, w, cy, cx, ry, rx):
+        m = np.zeros((h, w), np.uint8)
+        cv2.ellipse(m, (int(round(cx)), int(round(cy))), (max(1, int(round(rx))),
+                    max(1, int(round(ry)))), 0, 0, 360, 1, -1)
+        return m
+
+    def paint(img, mask, colour):
+        img[mask > 0] = (img[mask > 0] * 0.4 + colour * 0.6).astype(np.uint8)
+
+    def dump(name, obj):
+        with open(os.path.join(ann, name), "w") as fh:
+            json.dump(obj, fh)
+
+    def image_set(name, env_var, json_name, n_images, cat_choices, n_inst, radius,
+                  ignore_band=False):
+        h, w = shapes[name]
+        base = os.path.join(root, name)
+        os.makedirs(base)
+        env[env_var] = base
+        images = []
+        for i in range(n_images):
+            img = texture(rng, h, w)
+            cats, segs, union = [], [], np.zeros((h, w), np.uint8)
+            for k in range(rng.randint(*n_inst)):
+                r = radius(k)
+                m = blob(h, w, rng.uniform(0.15, 0.85) * h, rng.uniform(0.15, 0.85) * w,
+                         r * h, r * w * rng.uniform(0.6, 1.4))
+                paint(img, m, rng.randint(0, 256, 3))
+                cats.append(int(cat_choices[rng.randint(len(cat_choices))]))
+                segs.append(rle_str(m))
+                union |= m
+            rel = f"{i:06d}.jpg"
+            cv2.imwrite(os.path.join(base, rel), img)
+            entry = {"image_path": rel, "height": h, "width": w, "categories": cats,
+                     "segmentations": segs}
+            if ignore_band:
+                band = cv2.dilate(union, np.ones((5, 5), np.uint8)) & (1 - union)
+                entry["ignore"] = rle_str(band)
+            images.append(entry)
+        dump(json_name, {"meta": {"category_labels": {str(c): str(c) for c in cat_choices}},
+                         "images": images})
+
+    def video_set(name, base, json_name, specs, sub=""):
+        """specs: (seq id, frames, {iid: category}, {iid: frames without it})"""
+        h, w = shapes[name]
+        sequences = []
+        for seq_id, n_frames, cats, absent in specs:
+            os.makedirs(os.path.join(base, sub, seq_id))
+            bg = texture(rng, h, w + 2 * n_frames)  # the camera pans 2 px a frame
+            objs = {iid: (rng.uniform(0.3, 0.7) * h, rng.uniform(0.25, 0.75) * w,
+                          rng.uniform(0.08, 0.2) * h, rng.uniform(0.05, 0.12) * w,
+                          rng.uniform(-0.004, 0.004, 2) * (h, w), rng.randint(0, 256, 3))
+                    for iid in cats}
+            paths, segmentations = [], []
+            for t in range(n_frames):
+                img = np.ascontiguousarray(bg[:, 2 * t:2 * t + w])
+                seg_t = {}
+                for iid, (cy, cx, ry, rx, v, col) in objs.items():
+                    if t not in absent.get(iid, ()):
+                        m = blob(h, w, cy + v[0] * t, cx + v[1] * t, ry, rx)
+                        paint(img, m, col)
+                        seg_t[str(iid)] = rle_str(m)
+                paths.append(f"{seq_id}/{t:05d}.jpg")
+                cv2.imwrite(os.path.join(base, sub, paths[-1]), img)
+                segmentations.append(seg_t)
+            sequences.append({"id": seq_id, "height": h, "width": w, "image_paths": paths,
+                              "categories": {str(i): c for i, c in cats.items()},
+                              "segmentations": segmentations})
+        labels = {str(c): str(c) for s in specs for c in s[2].values()}
+        dump(json_name, {"meta": {"category_labels": labels}, "sequences": sequences})
+        return sequences
+
+    image_set("coco", "COCO_TRAIN_IMAGES_DIR", "coco_train.json", 8,
+              [1, 1, 1, 3, 18, 44, 62], (1, 7), lambda k: rng.uniform(0.06, 0.2))
+    image_set("pascal_voc", "PASCAL_VOC_IMAGES_DIR", "pascal_voc_train.json", 8,
+              [1, 2, 4, 7, 12, 15, 5], (2, 6), lambda k: rng.uniform(0.04, 0.2),
+              ignore_band=True)
+    image_set("mapillary", "MAPILLARY_IMAGES_DIR", "mapillary_train.json", 3,
+              [20, 56] * 8 + [55, 62, 1, 3], (45, 46),
+              lambda k: 0.002 if k % 15 == 0 else rng.uniform(0.08, 0.14))
+
+    env["YOUTUBE_VIS_BASE_DIR"] = os.path.join(root, "youtube_vis")
+    video_set("youtube_vis", env["YOUTUBE_VIS_BASE_DIR"], "youtube_vis_train.json", [
+        ("y0", 24, {1: 5}, {}),
+        ("y1", 22, {1: 1, 2: 7}, {1: {10}, 2: {10, 11}}),
+        ("y2", 20, {1: 12, 2: 3, 3: 40}, {3: set(range(8))})], sub="train")
+    env["DAVIS_BASE_DIR"] = os.path.join(root, "davis")
+    davis = video_set("davis", env["DAVIS_BASE_DIR"], "davis_train.json", [
+        ("d0", 40, {1: 1}, {1: {38, 39}}),
+        ("d1", 40, {1: 1, 2: 1, 3: 1}, {2: set(range(5, 12))}),
+        ("d2", 44, {1: 1, 2: 1, 3: 1, 4: 1}, {})])
+    dump("davis_val.json", {"meta": {"category_labels": {"1": "object"}}, "sequences": [
+        {"id": "val0", "height": davis[1]["height"], "width": davis[1]["width"],
+         "image_paths": davis[1]["image_paths"][:16]}]})
+    env["KITTIMOTS_BASE_DIR"] = os.path.join(root, "kitti_mots")
+    gap = set(range(15, 22))
+    video_set("kitti_mots", env["KITTIMOTS_BASE_DIR"], "kittimots_train.json", [
+        ("0000", 40, {1001: 1, 1002: 1, 2001: 2, 10000: 3},
+         {1001: gap, 1002: gap, 2001: gap | {0, 1, 2}}),
+        ("0001", 20, {1001: 1, 2001: 2}, {})])
+    return env
 
 
 def mixture_points(p, seed, e=4, n_free=2, n_clusters=8, noise=0.05):
@@ -880,11 +1055,14 @@ def device_profile(tg, frames):
         log(f"  profile A: {us / 1e3:9.3f} ms  {name[:90]}")
 
 
-def training_cfg(preset, max_iterations):
+def training_cfg(preset, max_iterations, mode="synthetic"):
+    """The preset with ``max_iterations``; ``mode=None`` keeps its own mode."""
     from stemseg_tpu_torch.config import load_preset, merge
 
-    return merge(load_preset(preset), {"training": {"mode": "synthetic",
-                                                    "max_iterations": max_iterations}})
+    over = {"max_iterations": max_iterations}
+    if mode:
+        over["mode"] = mode
+    return merge(load_preset(preset), {"training": over})
 
 
 def new_trainer(cfg, model_dir, *extra):
@@ -936,24 +1114,31 @@ def steady_intervals(trainer, skip):
 
 
 def assert_full_width(tag, cfg):
-    """Path T: R-101-FPN, heads (256, 256, 128, 128), 8 frames of 736x1248,
-    E = 4 ``xyff``, seediness head, 16 instance slots, 2 clips an update.
-    Path T': semseg head (256, 256, 256, 256) with 41 + 1 logits, fused
-    seediness, 640x1196 padded to 640x1216."""
+    """Path T (and R): R-101-FPN, heads (256, 256, 128, 128), 8 frames of
+    736x1248, E = 4 ``xyff``, seediness head, 16 instance slots, 2 clips an
+    update. Path T' (and R'): semseg head (256, 256, 256, 256) with 41 + 1
+    logits, fused seediness, 640x1196 padded to 640x1216. Path R'': 8 frames
+    of 736x1792, E = 3 ``xyt``, semseg 3 + 1, 30 instance slots, 2 clips an
+    update."""
     from stemseg_tpu_torch.config import resolve_max_instances
     from stemseg_tpu_torch.structures.geometry import pad_to_multiple
 
     m = cfg.model
-    if tag == "T":
+    if tag in ("T", "R"):
         got = (m.backbone.type, tuple(m.embeddings.inter_channels), cfg.input.num_frames,
                cfg.input.min_dim, cfg.input.max_dim, m.embeddings.embedding_size,
                m.embedding_dim_mode, m.use_seediness_head, resolve_max_instances(cfg),
                cfg.training.batch_size)
         want = ("R-101-FPN", (256, 256, 128, 128), 8, 736, 1248, 4, "xyff", True, 16, 2)
-    else:
+    elif tag in ("T'", "R'"):
         got = (m.backbone.type, tuple(m.semseg.inter_channels), cfg.input.num_classes,
                pad_to_multiple(cfg.input.min_dim, cfg.input.max_dim), m.use_seediness_head)
         want = ("R-101-FPN", (256, 256, 256, 256), 41, (640, 1216), False)
+    else:
+        got = (m.backbone.type, tuple(m.embeddings.inter_channels), cfg.input.num_frames,
+               cfg.input.min_dim, cfg.input.max_dim, m.embedding_dim_mode, cfg.input.num_classes,
+               m.use_semseg_head, resolve_max_instances(cfg), cfg.training.batch_size)
+        want = ("R-101-FPN", (256, 256, 128, 128), 8, 736, 1792, "xyt", 3, True, 30, 2)
     if got != want:
         raise AssertionError(f"path {tag}: not at the preset's full width: {got}")
 
@@ -1032,17 +1217,32 @@ def train_path_t(out_root):
 
 
 def placed_batches(trainer, n):
-    """``n`` synthetic batches of the trainer's config on its device."""
+    """``n`` batches of the trainer's config and mode on its device."""
     from stemseg_tpu_torch.config import resolve_max_instances
     from stemseg_tpu_torch.training.datasets import create_training_dataset
     from stemseg_tpu_torch.training.loader import collate_batch, to_device
+    from stemseg_tpu_torch.training.main import INIT_SEED
 
-    ds = create_training_dataset(trainer.cfg, n * trainer.samples_per_step,
+    ds = create_training_dataset(trainer.cfg, n * trainer.samples_per_step, seed=INIT_SEED,
                                  print_fn=lambda *a: None)
     k = trainer.samples_per_step
     return [to_device(collate_batch(
         [ds[i * k + j] for j in range(k)], resolve_max_instances(trainer.cfg),
         overflow=trainer.cfg.training.instance_overflow), trainer.device) for i in range(n)]
+
+
+def time_h2d(tag, trainer, batch, smi):
+    """CUDA-event ms of copying the device keys of ``batch`` (a host or a
+    device batch) to the device from pinned host memory, as the trainer
+    does."""
+    from stemseg_tpu_torch.training.loader import DEVICE_KEYS, to_device
+
+    pinned = {k: batch[k].cpu().pin_memory() for k in DEVICE_KEYS}
+    ms = time_cuda(lambda: to_device(pinned, trainer.device), 5, warmup=1)
+    mb = sum(v.numel() * v.element_size() for v in pinned.values()) / 1e6
+    log(f"  {tag} H2D ({smi}): {ms:.3f} ms for one micro-batch of {mb:.1f} MB from "
+        f"pinned memory ({mb / ms:.3f} GB/s)")
+    return ms
 
 
 def micro_step_split(step, batch):
@@ -1080,8 +1280,6 @@ def training_timings(tag, trainer, smi, n_steps=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from stemseg_tpu_torch.training.loader import to_device
-
     step = trainer.train_step
     acc = trainer.accumulate_steps
     batches = placed_batches(trainer, 2)
@@ -1096,12 +1294,7 @@ def training_timings(tag, trainer, smi, n_steps=3):
     clips = acc * trainer.samples_per_step
     log(f"  {tag} timing ({smi}): {s_per_step:.4f} s per optimizer step of {clips} clips "
         f"({clips / s_per_step:.3f} clips/s), step alone, batches on the device")
-    pinned = {k: v.cpu().pin_memory() for k, v in batches[0].items()}
-    h2d_ms = time_cuda(lambda: to_device(pinned, trainer.device), 5, warmup=1)
-    h2d_mb = sum(v.numel() * v.element_size() for v in pinned.values()) / 1e6
-    log(f"  {tag} H2D ({smi}): {h2d_ms:.3f} ms for one micro-batch of {h2d_mb:.1f} MB from "
-        f"pinned memory ({h2d_mb / h2d_ms:.3f} GB/s)")
-    del pinned
+    h2d_ms = time_h2d(tag, trainer, batches[0], smi)
 
     parts = {}
     for k in range(acc):  # one optimizer step
@@ -1211,6 +1404,232 @@ def train_path_t2(out_root, smi):
         log(f"  path T' step {r['step']}: " + ", ".join(
             f"{k} {r[k]:.5f}" for k in ("total", "semseg", "fg", "lovasz", "seediness")))
     return {"step2_s": interval[0], "peak_gib": peak_gib}
+
+
+def loader_clip_ms(n=5):
+    """Phase 14: host ms per clip of each of the six loaders as its mode's
+    factory builds it (COCO, YouTube-VIS, DAVIS and VOC in ``davis_1``,
+    Mapillary in ``kitti_mots_1``, KITTI-MOTS in ``kitti_mots_2``): the
+    median of ``n`` clips in this process."""
+    import statistics
+
+    import cv2
+
+    from stemseg_tpu_torch.data import SparseDataset, sample_generators
+    from stemseg_tpu_torch.training.datasets import create_training_dataset
+
+    for preset in ("davis_1", "kitti_mots_1", "kitti_mots_2"):
+        mix = create_training_dataset(training_cfg(preset, 10, mode=None), 20, seed=MAIN_SEED,
+                                      print_fn=lambda *a: None)
+        for ds in mix.datasets:
+            name = type(ds.dataset if isinstance(ds, SparseDataset) else ds).__name__
+            ms = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                sample = ds.get(i % len(ds), *sample_generators(MAIN_SEED, i))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            log(f"  per clip, {preset} {name}: {statistics.median(ms):.3f} ms (median of {n}; "
+                f"min {min(ms):.3f}, max {max(ms):.3f}); frames of {sample['orig_dims']} "
+                f"-> {sample['images'].shape}, {sample['masks'].shape[0]} instances; cv2 on "
+                f"{cv2.getNumThreads()} threads")
+
+
+def worker_clip_ms():
+    """Phase 14: the loader's rate in each mode: each preset's mix through a
+    DataLoader of TRAIN_WORKERS workers, one clip a batch, collated and
+    pinned as in the trainer; the wait for the first batch (worker start-up)
+    and the seconds a clip after it."""
+    from functools import partial
+
+    from torch.utils.data import DataLoader
+
+    from stemseg_tpu_torch.config import resolve_max_instances
+    from stemseg_tpu_torch.training.datasets import create_training_dataset
+    from stemseg_tpu_torch.training.loader import collate_batch
+
+    # kitti_mots_1 (Mapillary, about 1 s a clip) takes fewer clips
+    for preset, n_clips in (("davis_1", 20), ("youtube_vis", 12), ("kitti_mots_1", 8),
+                            ("kitti_mots_2", 12)):
+        cfg = training_cfg(preset, n_clips // 2, mode=None)
+        mix = create_training_dataset(cfg, n_clips, seed=MAIN_SEED, print_fn=lambda *a: None)
+        loader = DataLoader(mix, batch_sampler=[[i] for i in range(n_clips)],
+                            collate_fn=partial(collate_batch,
+                                               max_instances=resolve_max_instances(cfg)),
+                            num_workers=TRAIN_WORKERS, pin_memory=True, timeout=300)
+        t0 = time.perf_counter()
+        stamps = [time.perf_counter() - t0 for _ in loader]
+        per_clip = (stamps[-1] - stamps[0]) / (n_clips - 1)
+        log(f"  {TRAIN_WORKERS} workers, {preset}: first batch after {stamps[0]:.3f} s, then "
+            f"{per_clip * 1e3:.3f} ms a clip ({1 / per_clip:.3f} clips/s) over {n_clips - 1} clips")
+
+
+def construction_seconds():
+    """Phase 14: ``create_training_dataset`` at ``davis_1``'s own length
+    (50,000 steps of 2 clips)."""
+    from stemseg_tpu_torch.config import load_preset
+    from stemseg_tpu_torch.data import SparseDataset
+    from stemseg_tpu_torch.training.datasets import create_training_dataset
+    from stemseg_tpu_torch.training.main import INIT_SEED
+
+    cfg = load_preset("davis_1")
+    total = cfg.training.max_iterations * cfg.training.batch_size
+    t0 = time.perf_counter()
+    mix = create_training_dataset(cfg, total, seed=INIT_SEED, print_fn=lambda *a: None)
+    seconds = time.perf_counter() - t0
+    sizes = [(type(d.dataset if isinstance(d, SparseDataset) else d).__name__, len(d))
+             for d in mix.datasets]
+    log(f"  construction at {cfg.training.max_iterations} steps ({total} clips): {seconds:.3f} s; "
+        f"{sizes}")
+
+
+def real_training_path(tag, preset, steps, out_root, smi):
+    """Phases 14 and 15: the trainer in the preset's own mode on the written
+    datasets, ``steps`` optimizer steps; losses finite, every trainable
+    tensor changed and no frozen one, checkpoints written, batches from at
+    least two of the mix's datasets where it has two. Returns the trainer."""
+    import torch
+
+    from stemseg_tpu_torch.data import SparseDataset
+
+    cfg = training_cfg(preset, steps, mode=None)
+    assert_full_width(tag, cfg)
+    model_dir = os.path.join(out_root, "R" + str(len(tag)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = new_trainer(cfg, model_dir, "--save_interval", "2")
+    init = {k: v.detach().clone() for k, v in trainer.model.named_parameters()}
+    trainer.start()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    keys = ("total", "lovasz", "var_smoothness", "seediness", "grad_norm") + (
+        ("semseg",) if cfg.model.use_semseg_head else ())
+    records = read_metrics(model_dir, keys)
+    stale, moved = changed_params(trainer.model, init)
+    n_frozen = sum(not p.requires_grad for p in trainer.model.parameters())
+    if [r["step"] for r in records] != list(range(1, steps + 1)) or stale or moved \
+            or not n_frozen:
+        raise AssertionError(f"path {tag}: steps {[r['step'] for r in records]}, unchanged "
+                             f"trainable {stale[:3]}, changed frozen {moved[:3]}")
+    ckpts = sorted(f for f in os.listdir(model_dir) if f.endswith(".pth"))
+    if ckpts != [f"{i:06d}.pth" for i in range(2, steps + 1, 2)]:
+        raise AssertionError(f"path {tag}: checkpoints {ckpts}")
+    loader = trainer.make_loader(0)
+    loader.batch_sampler.start_iter = 0  # the run's whole stream, not its rest
+    mix = loader.dataset
+    names = [type(d.dataset if isinstance(d, SparseDataset) else d).__name__
+             for d in mix.datasets]
+    used = [names[mix.id_mapping[i][0]] for batch in loader.batch_sampler for i in batch]
+    if len(set(used)) < min(2, len(names)):
+        raise AssertionError(f"path {tag}: batches from {used} only")
+
+    waits = trainer.loader_waits
+    intervals = steady_intervals(trainer, 0)
+    acc = trainer.accumulate_steps
+    log(f"  path {tag}: {preset} ({cfg.training.mode} mode), {steps} steps of {acc} clips in "
+        f"{wall:.3f} s (build, dataset and first-step set-up included), peak device memory "
+        f"{peak_gib:.2f} GiB; {n_frozen} frozen tensors unchanged, all "
+        f"{sum(p.requires_grad for p in trainer.model.parameters())} trainable changed; "
+        f"checkpoints {ckpts}")
+    log(f"  path {tag}: clips from {used}")
+    for r in records:
+        log(f"  path {tag} step {r['step']}: " + ", ".join(f"{k} {r[k]:.5f}" for k in keys))
+    for k, interval in enumerate(intervals, start=2):
+        shapes = trainer.batch_shapes[(k - 1) * acc:k * acc]
+        log(f"  path {tag} step {k}: {interval:.4f} s in the trainer ({smi}; after a checkpoint "
+            f"save: {(k - 1) % 2 == 0}), padded clips {[tuple(s[2:4]) for s in shapes]}")
+    log(f"  path {tag}: loader wait, first batch {waits[0]:.3f} s, then "
+        f"{sum(waits[1:]) / max(len(waits) - 1, 1) * 1e3:.3f} ms mean, "
+        f"{max(waits[1:], default=0.0) * 1e3:.3f} ms max over {len(waits) - 1} batches")
+    time_h2d(f"path {tag}", trainer, next(iter(loader)), smi)
+    return trainer
+
+
+def train_then_infer_cli(trainer, out_root):
+    """Path R's checkpoint through the inference CLI (``main``, ``--dataset
+    davis``) on the written ``davis_val.json``: every window through the
+    clustering kernel its dispatch picks, a PNG a frame; then the first
+    window's kernel output held against the plain version. Returns the
+    CLI's launch counts and (the kernel, its ms on the first window)."""
+    import cv2
+    import numpy as np
+
+    from stemseg_tpu_torch.data.parsers import parse_generic_video_dataset
+    from stemseg_tpu_torch.data.paths import DavisUnsupervisedPaths
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.inference.windows import get_subsequence_frames
+    from stemseg_tpu_torch.ops import launch_counts, reset_launch_counts
+    from stemseg_tpu_torch.ops.cluster import single_block_supported
+    from stemseg_tpu_torch.structures.geometry import pad_to_multiple
+    from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
+
+    ckpt = find_latest_checkpoint(trainer.model_dir)
+    out_dir = os.path.join(out_root, "R_infer")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main([ckpt, "-o", out_dir, "--dataset", "davis", "-msp", "0.05"])
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+
+    (seq,), _ = parse_generic_video_dataset(DavisUnsupervisedPaths.trainval_base_dir(),
+                                            DavisUnsupervisedPaths.val_vds_file())
+    frames = np.stack([cv2.imread(p, cv2.IMREAD_COLOR) for p in seq.frame_paths()])
+    cfg = cli.load_inference_cfg(ckpt, "davis", None, None, 0.05)
+    tg = make_track_generator(cfg, "davis", cli.load_model(cfg, ckpt, device="cuda"),
+                              os.path.join(out_root, "R_infer_check"))
+    n_windows = len(get_subsequence_frames(len(frames), cfg.input.num_frames, tg.frame_overlap))
+    h, w = pad_to_multiple(*resize_hw(cfg, frames))
+    n_points = h // 4 * w // 4 * cfg.input.num_frames
+    kernel = ("cluster_points_single" if single_block_supported(
+        n_points, cfg.clustering.max_instances, cfg.model.embeddings.embedding_size)
+        else "cluster_points_tiled")
+    other = ({"cluster_points_single", "cluster_points_tiled"} - {kernel}).pop()
+    if launches[kernel] != n_windows or launches[other] or launches["cluster_points_reference"]:
+        raise AssertionError(f"R train -> infer: launches {launches}, expected {n_windows} "
+                             f"of {kernel}")
+    written = check_outputs("R", tg, out_dir, seq.id, frames)
+    log(f"  train -> infer (R): {os.path.basename(ckpt)} + config.yaml through the inference "
+        f"CLI on davis_val.json ({len(frames)} frames of {frames.shape[1]}x{frames.shape[2]}): "
+        f"{n_windows} windows through {kernel}, {written}, wall {wall:.3f} s; launches "
+        f"{launches}")
+    window_ms, kernel_ms, shape = window_cluster_ms(tg, frames)
+    if shape[0] != n_points:
+        raise AssertionError(f"R train -> infer: first window of {tuple(shape)}, expected "
+                             f"{n_points} points")
+    log(f"  train -> infer (R): {kernel} on the first window's inputs {tuple(shape)}: "
+        f"{kernel_ms:.4f} ms; the window's whole clustering step {window_ms:.4f} ms")
+    return launches, (kernel, kernel_ms)
+
+
+def real_data_phases(out_root, smi):
+    """Phases 14 and 15 on datasets written to ``out_root``; returns path
+    R's train -> infer launch counts and (kernel, ms on its first window)."""
+    import torch
+
+    log("== phase 14: training path R (davis_1 in davis mode: COCO + YT-VIS + DAVIS + VOC)")
+    t_phase = time.perf_counter()
+    env = write_training_datasets(os.path.join(out_root, "datasets"))
+    os.environ.update(env)
+    mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+             os.walk(os.path.join(out_root, "datasets")) for f in fs) / 1e6
+    log(f"  six datasets written in {time.perf_counter() - t_phase:.1f} s, {mb:.1f} MB")
+    loader_clip_ms()
+    worker_clip_ms()
+    construction_seconds()
+    trainer = real_training_path("R", "davis_1", 4, out_root, smi)
+    launches, real = train_then_infer_cli(trainer, out_root)
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    log("== phase 15: training paths R' (youtube_vis) and R'' (kitti_mots_2) in their own modes")
+    t_phase = time.perf_counter()
+    # youtube_vis takes 4 steps: at 4 clips VOC's quota (0.1) rounds to 0
+    for tag, preset, steps in (("R'", "youtube_vis", 4), ("R''", "kitti_mots_2", 2)):
+        trainer = real_training_path(tag, preset, steps, out_root, smi)
+        del trainer
+        torch.cuda.empty_cache()
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches, real
 
 
 def check_train_step_gpu_vs_cpu():
@@ -1371,18 +1790,18 @@ def main():
         log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
         log("== phase 13: one micro-step, GPU against CPU (small size, TF32 off)")
         check_train_step_gpu_vs_cpu()
+        launches_r, real_r = real_data_phases(out_root, smi)
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
-    launches = {name: sum(run[name] for run in (launches_a, launches_b, launches_c,
-                                                launches_d, launches_c2, launches_t))
-                for name in replaces}
     launches_by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d,
-                        "C'": launches_c2, "T": launches_t}
+                        "C'": launches_c2, "T": launches_t, "R": launches_r}
+    launches = {name: sum(run[name] for run in launches_by_path.values()) for name in replaces}
     kernels["cluster_points_tiled"]["real_windows"] = {"C": real_c["kernel_ms_real_window"],
                                                        "D": real_d["kernel_ms_real_window"],
                                                        "C'": real_c2["kernel_ms_real_window"]}
     kernels[real_t[0]].setdefault("real_windows", {})["T"] = real_t[1]
+    kernels[real_r[0]].setdefault("real_windows", {})["R"] = real_r[1]
     keys = ("max_abs_err", "label_mismatches", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_ms_per_call", "cold_l2_ms", "sync_floor_ms", "iterations",
             "points", "e_dims", "at_878592", f"at_{PATH_D_POINTS}_e3", f"at_{PATH_C2_POINTS}_e4",

@@ -1,7 +1,8 @@
 """Deterministic samplers: an epoch-seeded permutation sliced per replica,
 batching, and iteration-based batching with resume, as in the JAX
 package's ``data/samplers.py`` (the same numpy ``default_rng(epoch)``
-stream, so both trainers see the same indices).
+stream, so both trainers see the same indices); and the seed of each
+sample of a dataset stream.
 
 One difference: a resumed ``IterationBasedBatchSampler`` continues the
 stream an uninterrupted run would have seen (the pass that ``start_iter``
@@ -14,9 +15,26 @@ uninterrupted ones.
 from __future__ import annotations
 
 import math
-from typing import Iterator, List
+import random
+from typing import Iterator, List, Tuple
 
 import numpy as np
+
+
+def sample_seed(seed: int, index: int) -> int:
+    """The seed of sample ``index`` of a dataset stream seeded with ``seed``
+    (the synthetic clips' formula): each sample draws only from generators
+    made from it, so a sample does not depend on which worker process builds
+    it, nor on the samples built before it."""
+    return (seed * 1_000_003 + index) % (2 ** 31 - 1)
+
+
+def sample_generators(seed: int, index: int) -> Tuple[random.Random, np.random.RandomState]:
+    """The ``random.Random`` and ``np.random.RandomState`` of sample
+    ``index``, both seeded with ``sample_seed(seed, index)``: the state that
+    ``random.seed`` and ``np.random.seed`` give the global generators."""
+    s = sample_seed(seed, index)
+    return random.Random(s), np.random.RandomState(s)
 
 
 class ShardedSampler:

@@ -4,7 +4,7 @@ step -> logging -> checkpoint -> resume) runs without a dataset on disk.
 Each clip holds 1 to ``max_instances`` solid-colour ellipses drifting over
 a textured background, with exact instance masks: the heads can lower
 their losses on it. Sample ``i`` is drawn from
-``RandomState((seed * 1_000_003 + i) % (2**31 - 1))`` in the same order as
+``RandomState(sample_seed(seed, i))`` in the same order as
 the JAX package's ``data/synthetic.py``, so the two datasets give
 byte-identical samples, and a resumed run replays the stream exactly.
 """
@@ -15,6 +15,7 @@ from typing import Dict
 
 import numpy as np
 
+from stemseg_tpu_torch.data.samplers import sample_seed
 from stemseg_tpu_torch.data.transforms import scale_and_normalize_images
 
 
@@ -46,7 +47,7 @@ class SyntheticBlobDataset:
     def __getitem__(self, index: int) -> Dict:
         icfg = self.input_cfg
         t, h, w = icfg.num_frames, self.height, self.width
-        rng = np.random.RandomState((self.seed * 1_000_003 + index) % (2 ** 31 - 1))
+        rng = np.random.RandomState(sample_seed(self.seed, index))
 
         # textured background: low-frequency colour gradient + pixel noise
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)

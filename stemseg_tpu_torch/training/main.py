@@ -15,10 +15,14 @@ exceptions checkpoint before the trainer exits. ``--profile DIR`` writes a
 ``torch.profiler`` trace of ``--profile_steps`` optimizer steps after the
 first.
 
-It runs on the GPU unless ``--device cpu`` is given. Not ported yet, and
-refused: the real-dataset modes (``training.mode`` other than
-``synthetic``), ``training.mixed_precision`` (bf16, ROADMAP A12), a JAX
-``.ckpt`` (ROADMAP A13), more than one GPU (ROADMAP A19).
+Every ``training.mode`` trains: ``davis``, ``youtube_vis`` and
+``kitti_mots`` read their datasets from the environment variables of
+``data/paths.py``; ``synthetic`` needs none. The real modes' datasets are
+built from ``INIT_SEED``, so a batch depends neither on
+``--num_cpu_workers`` nor on a resume. It runs on the GPU unless
+``--device cpu`` is given. Not ported yet, and refused:
+``training.mixed_precision`` (bf16, ROADMAP A12), a JAX ``.ckpt`` (ROADMAP
+A13), more than one GPU (ROADMAP A19).
 """
 
 from __future__ import annotations
@@ -74,9 +78,11 @@ class Trainer:
         self.elapsed_iterations = 0
         self.total_iterations = cfg.training.max_iterations
         # host clock at the end of each optimizer step, and the loader's
-        # wait per micro-batch (seconds), for throughput reports
+        # wait (seconds) and padded image shape per micro-batch, for
+        # throughput reports
         self.iteration_end_times = []
         self.loader_waits = []
+        self.batch_shapes = []
 
         restore_path = args.restore_session
         if restore_path is None and not args.no_resume:
@@ -127,7 +133,8 @@ class Trainer:
 
         # micro-steps = optimizer steps * accumulate steps
         total_subiters = self.total_iterations * self.accumulate_steps
-        dataset = create_training_dataset(self.cfg, total_subiters * self.samples_per_step)
+        dataset = create_training_dataset(self.cfg, total_subiters * self.samples_per_step,
+                                          seed=INIT_SEED)
         batch_sampler = IterationBasedBatchSampler(
             BatchSampler(ShardedSampler(len(dataset)), self.samples_per_step),
             num_iterations=total_subiters,
@@ -163,6 +170,7 @@ class Trainer:
                 self.loader_waits.append(time.perf_counter() - t_wait)
                 if host_batch is None:
                     break
+                self.batch_shapes.append(tuple(host_batch["images"].shape))
                 if (self.args.profile and profiler is None
                         and sub_iter >= self.accumulate_steps):
                     profiler = self._start_profiler()

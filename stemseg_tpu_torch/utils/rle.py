@@ -82,7 +82,7 @@ def encode(mask: np.ndarray) -> Union[RLE, List[RLE]]:
 
 
 def decode(rle: RLE) -> np.ndarray:
-    """RLE dict -> ``[H, W]`` uint8 mask."""
+    """RLE dict -> ``[H, W]`` uint8 mask, C-contiguous."""
     h, w = (int(v) for v in rle["size"])
     counts = _counts_of(rle)
     vals = np.zeros(len(counts), np.uint8)
@@ -90,7 +90,7 @@ def decode(rle: RLE) -> np.ndarray:
     flat = np.repeat(vals, np.asarray(counts, np.int64))
     if flat.size != h * w:
         raise ValueError(f"RLE covers {flat.size} pixels, expected {h * w}")
-    return flat.reshape((w, h)).T
+    return np.ascontiguousarray(flat.reshape((w, h)).T)
 
 
 def area(rle: RLE) -> int:

@@ -1,4 +1,5 @@
-"""The Pascal-VOC palette used by the DAVIS PNG writer."""
+"""The Pascal-VOC palette used by the DAVIS PNG writer, and the mask
+overlay of the training loaders' debug CLI."""
 
 from __future__ import annotations
 
@@ -18,3 +19,10 @@ def create_color_map(n: int = 256) -> np.ndarray:
             c >>= 3
         cmap[i] = (r, g, b)
     return cmap
+
+
+def overlay_mask_on_image(image: np.ndarray, mask: np.ndarray, mask_color) -> np.ndarray:
+    """``mask_color`` blended at 0.6 opacity onto the ``[H, W, 3]`` uint8
+    ``image`` where the ``[H, W]`` ``mask`` is set."""
+    masked = np.where(mask[..., None] > 0, np.asarray(mask_color, dtype=image.dtype), image)
+    return (0.6 * masked + 0.4 * image).astype(np.uint8)

@@ -27,7 +27,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "stemseg_tpu"))
 assert {"stemseg_tpu_torch.losses.lovasz", "stemseg_tpu_torch.training.main",
-        "stemseg_tpu_torch.data.synthetic"} <= set(names)
+        "stemseg_tpu_torch.data.synthetic", "stemseg_tpu_torch.data.augmenter",
+        "stemseg_tpu_torch.data.instance_duplicator", "stemseg_tpu_torch.data.video_dataset",
+        "stemseg_tpu_torch.data.video_loaders", "stemseg_tpu_torch.data.image_clip_loaders",
+        "stemseg_tpu_torch.data.concat_dataset",
+        "stemseg_tpu_torch.data.visualize_data_loading"} <= set(names)
 print(len(names), bad)
 """
 
@@ -42,7 +46,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_no_cuda_env(),
                          capture_output=True, text=True, timeout=300, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 54
+    assert int(n) >= 61
     assert bad == "[]", bad
 
 
@@ -95,8 +99,14 @@ def _trainer_cli():
     main(["--model_dir", "unused", "--cfg", "davis_1"])
 
 
+def _trainer_cli_kitti_mots():
+    from stemseg_tpu_torch.training.main import main
+
+    main(["--model_dir", "unused", "--cfg", "kitti_mots_2"])
+
+
 @pytest.mark.parametrize("entry", [_build_model, _writer, _ytvis_writer, _kitti_writer,
-                                   _cli_model, _trainer, _trainer_cli])
+                                   _cli_model, _trainer, _trainer_cli, _trainer_cli_kitti_mots])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

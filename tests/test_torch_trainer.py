@@ -12,9 +12,9 @@ two share a contract:
 * ``ckpts_to_keep``, ``--initial_ckpt`` warm start at iteration 0;
 * the saved ``config.yaml`` loads in the JAX ``load_config`` to the same
   tree; the trained ``.pth`` runs through the port's inference CLI;
-* ``--profile`` writes a trace; ``mixed_precision``, the real-data modes
-  and a JAX ``.ckpt`` raise; the loader re-raises a worker's error and
-  shuts its workers down.
+* ``--profile`` writes a trace; ``mixed_precision`` and a JAX ``.ckpt``
+  raise, and so do the real-data modes without their datasets; the loader
+  re-raises a worker's error and shuts its workers down.
 """
 
 import copy
@@ -265,9 +265,13 @@ def test_profile_writes_a_trace(tmp_path):
 
 @pytest.mark.parametrize("case", ["mixed_precision", "davis", "youtube_vis", "kitti_mots",
                                   "jax_ckpt"])
-def test_what_is_not_ported_raises(tmp_path, case):
+def test_what_is_not_ported_raises(tmp_path, case, monkeypatch):
+    """What the port lacks raises; the real-data modes (ported) raise only
+    without their datasets, naming the first environment variable they
+    read."""
     over = copy.deepcopy(TRAIN_SMALL)
     extra = []
+    error, match = NotImplementedError, "ROADMAP"
     if case == "mixed_precision":
         over["training"]["mixed_precision"] = True
     elif case == "jax_ckpt":
@@ -275,8 +279,14 @@ def test_what_is_not_ported_raises(tmp_path, case):
         extra = ["--initial_ckpt", str(tmp_path / "w.ckpt")]
     else:
         over["training"]["mode"] = case
+        over["input"]["num_classes"] = {"davis": 2, "youtube_vis": 41, "kitti_mots": 3}[case]
+        over["data"] = {}
+        for var in ("COCO_TRAIN_IMAGES_DIR", "KITTIMOTS_BASE_DIR"):
+            monkeypatch.delenv(var, raising=False)
+        error, match = KeyError, ("KITTIMOTS_BASE_DIR" if case == "kitti_mots"
+                                  else "COCO_TRAIN_IMAGES_DIR")
     cfg_path = write_cfg(tmp_path, over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         run_trainer(tmp_path / "run", cfg_path, *extra)
 
 
