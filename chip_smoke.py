@@ -88,7 +88,31 @@ which raises on failure (the script then exits non-zero):
 15. training paths R′ (``youtube_vis`` in its own mode: COCO + VOC +
    YT-VIS, 41 classes; 4 steps, since VOC's 0.1 of 4 clips rounds to 0)
    and R″ (``kitti_mots_2``: KITTI-MOTS, 544x1792, 30 instance slots, the
-   category-3 ignore masks; 2 steps), with phase 14's checks and numbers.
+   category-3 ignore masks; 2 steps), with phase 14's checks and numbers;
+16. bf16 inference at full width: paths A and C in float32 and then with
+   the model built as ``--bf16`` builds it (bfloat16 compute, the same
+   float32 weights) through ``TrackGenerator`` into their writers, every
+   window through ``cluster_points_tiled``, the writers' files checked, the
+   first bf16 window's kernel output held against the plain version; the
+   fg-mask and label agreement of bf16 with float32 (labels also with the
+   track ids matched one to one), peak memory, steady fps, the bf16 layer
+   split and a profiled bf16 run; path A also steady in float32 with TF32
+   on (set after the engine and the writer are built, off again after), with
+   its layer split;
+17. training path T with ``training.mixed_precision`` (bf16) for 4 steps:
+   every loss finite, every trainable tensor changed and float32, the
+   frozen ones unchanged; step time, micro-step split, profile, peak
+   memory, the first step's losses against float32 path T's (same seed and
+   batches); train -> infer with the model in bf16, the first window held
+   against the plain version;
+18. the rest of the inference CLI: path T's last checkpoint written as a
+   JAX trainer's ``.ckpt`` (this script's msgpack encoder and the inverse
+   of ``state_dict_from_jax``, checked to map back to the same tensors)
+   through ``main`` with ``--profile_clustering --save_vis --profile`` on
+   phase 14's ``davis_val.json``, and the ``.pth`` through ``main``: equal
+   labels, every window through the kernel the dispatch picks, the
+   clustering report's bucket, a JPEG a frame, a chrome trace with device
+   kernels.
 
 Paths C, D and C′ print the fps report of their checked run and of a
 second, steady run, and the device time of each layer (CUDA events). The
@@ -124,6 +148,9 @@ PATH_D_POINTS = 136 * 448 * 8  # kitti_mots_2 window, E = 3
 PATH_C2_POINTS = 640 * 1152 * 8  # youtube_vis window at the network input scale
 PATH_T_POINTS = 176 * 312 * 8  # davis_1 at 736/1248 on path B's frames (train -> infer)
 TRAIN_WORKERS = 4  # loader worker processes of the training paths
+# phase 16: a bf16 path whose fg masks disagree with float32 on more than a
+# tenth of the pixels is broken, not rounded
+BF16_MIN_FG_AGREEMENT = 0.9
 TRAIN_DATA_SHAPES = {  # frame (height, width) of each training dataset as it ships
     "coco": (480, 640), "pascal_voc": (375, 500), "youtube_vis": (720, 1280),
     "davis": (480, 854), "kitti_mots": (375, 1242), "mapillary": (1080, 1920)}
@@ -481,30 +508,47 @@ def check_exact(ops, name, tensors):
     return 0.0, mism_total, n_iter_avail
 
 
-def device_kernels(fn, n, attempts=2):
+def device_kernels(fn, n, attempts=3):
     """Kernels the device ran per call of ``fn`` (torch.profiler): by name,
-    (launches per call, device ms per call). The profiler has been seen to
-    return no device event at all for a whole session on the H100; such a
-    session is profiled again, and raises after ``attempts``."""
+    (launches per call, device ms per call). On the H100 the profiler has
+    been seen to return no device event at all for a session, and to lose
+    one launch of a kernel out of 20 (19 recorded for 20 calls that each
+    launch it once). Such a session is profiled again; it raises after
+    ``attempts`` sessions without an event. Where every session lost
+    launches, the last one is read with each kernel's launches per call
+    rounded to the nearest whole number (kept as it is below 0.5) and its
+    device ms per call the mean of the launches it recorded times that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    by_name = {}
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        session = {}
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CUDA:
-                count, us = by_name.get(evt.name, (0, 0.0))
-                by_name[evt.name] = (count + 1, us + evt.time_range.elapsed_us())
-        if by_name:
-            return {name: (count / n, us / n / 1e3) for name, (count, us) in by_name.items()}
-        log(f"  profiler: no device event in session {attempt + 1} of {attempts}")
-    raise RuntimeError(f"torch.profiler recorded no device event in {attempts} sessions")
+                count, us = session.get(evt.name, (0, 0.0))
+                session[evt.name] = (count + 1, us + evt.time_range.elapsed_us())
+        if not session:
+            log(f"  profiler: no device event in session {attempt + 1} of {attempts}")
+            continue
+        by_name = session
+        if all(count % n == 0 for count, _ in session.values()):
+            break
+        log(f"  profiler: session {attempt + 1} of {attempts} lost launches "
+            f"({ {name[:60]: count for name, (count, _) in session.items()} } over {n} calls)")
+    if not by_name:
+        raise RuntimeError(f"torch.profiler recorded no device event in {attempts} sessions")
+    per_call = {}
+    for name, (count, us) in by_name.items():
+        launches = round(count / n) if count / n >= 0.5 else count / n
+        per_call[name] = (launches, us / count * launches / 1e3)
+    return per_call
 
 
 def host_ms_per_call(fn, n):
@@ -977,7 +1021,8 @@ def layer_split(tag, tg, frames, n_windows, kernel_ms=None, window_ms=None, comp
             del logits
         if window_ms is not None:
             parts["clustering, window prep"] = (window_ms - kernel_ms) * n_windows
-        parts["clustering kernels"] = kernel_ms * n_windows
+        if kernel_ms is not None:
+            parts["clustering kernels"] = kernel_ms * n_windows
         for name, ms in parts.items():
             log(f"  layer split {tag}: {name:24s} {ms:9.3f} ms for {n_frames} frames")
         if compare_heads:
@@ -1031,14 +1076,14 @@ def semseg_path(tag, preset, dataset, frames, seq_id, n_windows, expect_shape, o
                       "layer_split_ms": parts}
 
 
-def device_profile(tg, frames):
+def device_profile(tg, frames, tag="A"):
     """One more sequence through ``tg`` under torch.profiler: the device's
     busy share of the wall time (sum of kernel, copy and memset time on
     the device over the host's wall clock) and the largest device items."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    seq = Sequence("A3", len(frames), frames.shape[1:3])
+    seq = Sequence(tag + "_profiled", len(frames), frames.shape[1:3])
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tg._process_loaded(seq, frames, frames.shape[1:3], tg.max_tracks)
@@ -1049,10 +1094,10 @@ def device_profile(tg, frames):
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     busy_us = sum(by_name.values())
-    log(f"  profile A: wall {wall_us / 1e3:.3f} ms (profiled, writer included), device busy "
+    log(f"  profile {tag}: wall {wall_us / 1e3:.3f} ms (profiled, writer included), device busy "
         f"{busy_us / 1e3:.3f} ms = {busy_us / wall_us:.3f} of the wall")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  profile A: {us / 1e3:9.3f} ms  {name[:90]}")
+        log(f"  profile {tag}: {us / 1e3:9.3f} ms  {name[:90]}")
 
 
 def training_cfg(preset, max_iterations, mode="synthetic"):
@@ -1305,16 +1350,20 @@ def training_timings(tag, trainer, smi, n_steps=3):
         value = ms if per == "optimizer step" else ms / acc
         log(f"  {tag} split ({smi}): {name:24s} {value:9.3f} ms a {per}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for k in range(2 * acc):
-            step(batches[k % 2])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    for attempt in range(2):  # a session without device events is profiled again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for k in range(2 * acc):
+                step(batches[k % 2])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+        if by_name:
+            break
+        log(f"  {tag} profile: no device event in session {attempt + 1} of 2")
     busy_us = sum(by_name.values())
     if not by_name:
         raise RuntimeError(f"{tag}: torch.profiler recorded no device event")
@@ -1326,12 +1375,13 @@ def training_timings(tag, trainer, smi, n_steps=3):
             "split_ms": parts, "busy_share": busy_us / wall_us}
 
 
-def train_then_infer(trainer, frames, out_root):
+def train_then_infer(trainer, frames, out_root, dtype=None, tag="T"):
     """The trainer's last ``.pth`` and ``config.yaml`` through the inference
-    CLI's loaders and ``TrackGenerator`` into the DAVIS writer; every window
-    through the kernel the dispatch picks, the first window's kernel output
-    held against the plain version. Returns the launch counts and (the
-    kernel, its ms on the first window's inputs)."""
+    CLI's loaders (the model computing in ``dtype``, as ``--bf16`` builds
+    it) and ``TrackGenerator`` into the DAVIS writer; every window through
+    the kernel the dispatch picks, the first window's kernel output held
+    against the plain version. Returns the launch counts and (the kernel,
+    its ms on the first window's inputs)."""
     import numpy as np
     import torch
 
@@ -1342,9 +1392,10 @@ def train_then_infer(trainer, frames, out_root):
 
     ckpt = find_latest_checkpoint(trainer.model_dir)
     cfg = load_inference_cfg(ckpt, "davis", None, None, 0.05)
-    model = load_model(cfg, ckpt, device="cuda")
-    tg = make_track_generator(cfg, "davis", model, os.path.join(out_root, "T_infer"))
-    labels, counts, metas, launches = run_main_path(tg, frames, "T")
+    model = load_model(cfg, ckpt, device="cuda", dtype=dtype)
+    out_dir = os.path.join(out_root, tag + "_infer")
+    tg = make_track_generator(cfg, "davis", model, out_dir)
+    labels, counts, metas, launches = run_main_path(tg, frames, tag)
     n_windows = len(get_subsequence_frames(len(frames), cfg.input.num_frames,
                                            tg.frame_overlap))
     n_points = int(np.prod(metas[0].labels.shape))
@@ -1355,8 +1406,8 @@ def train_then_infer(trainer, frames, out_root):
     if launches[kernel] != n_windows or launches[other] or launches["cluster_points_reference"]:
         raise AssertionError(f"train -> infer: launches {launches}, expected {n_windows} "
                              f"of {kernel}")
-    written = check_outputs("T", tg, os.path.join(out_root, "T_infer"), "T", frames)
-    log(f"  train -> infer: {os.path.basename(ckpt)} + config.yaml ({cfg.input.min_dim}/"
+    written = check_outputs(tag, tg, out_dir, tag, frames)
+    log(f"  train -> infer ({tag}): {os.path.basename(ckpt)} + config.yaml ({cfg.input.min_dim}/"
         f"{cfg.input.max_dim}), {len(frames)} frames of {frames.shape[1]}x{frames.shape[2]}: "
         f"{len(metas)} windows of {n_points} points through {kernel}, labels "
         f"{tuple(labels.shape)}, {len(counts) - 1} tracks, clusters per window "
@@ -1365,7 +1416,7 @@ def train_then_infer(trainer, frames, out_root):
     if shape[0] != n_points:
         raise AssertionError(f"train -> infer: first window of {tuple(shape)}, expected "
                              f"{n_points} points")
-    log(f"  train -> infer: {kernel} on the first window's inputs {tuple(shape)}: "
+    log(f"  train -> infer ({tag}): {kernel} on the first window's inputs {tuple(shape)}: "
         f"{kernel_ms:.4f} ms; the window's whole clustering step {window_ms:.4f} ms")
     del model, tg
     torch.cuda.empty_cache()
@@ -1679,6 +1730,429 @@ def check_train_step_gpu_vs_cpu():
             raise AssertionError(f"micro-step {tag}: loss error {loss_err}, grad error {grad_err}")
 
 
+def matched_label_agreement(a, b):
+    """Share of the pixels of two label volumes that agree after the
+    one-to-one matching of ``a``'s track ids to ``b``'s that maximises the
+    agreement (the outlier label -1 matches only itself)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    ids_a, ia = np.unique(a, return_inverse=True)
+    ids_b, ib = np.unique(b, return_inverse=True)
+    overlap = np.bincount(ia.ravel() * len(ids_b) + ib.ravel(),
+                          minlength=len(ids_a) * len(ids_b)).reshape(len(ids_a), len(ids_b))
+    overlap[(ids_a[:, None] < 0) != (ids_b[None, :] < 0)] = 0
+    rows, cols = linear_sum_assignment(-overlap)
+    return float(overlap[rows, cols].sum() / a.size)
+
+
+def keep_fg_masks(tg):
+    """Has ``tg`` keep the fg masks of each sequence it runs (on the host)."""
+    seen = []
+    inner = tg.do_inference
+
+    def do_inference(frames, image_hw):
+        out = inner(frames, image_hw)
+        seen.append(out["fg_masks"].cpu().numpy())
+        return out
+
+    tg.do_inference = do_inference
+    return seen
+
+
+def set_tf32(on):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def bf16_path(tag, preset, dataset, frames, seq_id, n_windows, expect_shape, out_root, smi,
+              tf32_reading=False):
+    """Phase 16: one path at full width in float32, then with ``--bf16`` (a
+    model built with ``dtype=torch.bfloat16`` on the same weights) through
+    ``TrackGenerator`` into the writer: every window through
+    ``cluster_points_tiled``, the writer's files checked, the first bf16
+    window's kernel output held against the plain version; the fg-mask and
+    label agreement of bf16 with float32, each run's peak memory, the steady
+    fps reports, the bf16 layer split and a profiled bf16 run. With
+    ``tf32_reading`` the float32 model also runs steady with TF32 on (set
+    after the engine and the writer are built, off again after), with its
+    layer split. Returns the bf16 run's launch counts and numbers."""
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset, merge
+    from stemseg_tpu_torch.models import build_model
+
+    cfg = merge(load_preset(preset), {"clustering": {"min_seediness_prob": 0.05}})
+    model = build_random_model(cfg, frames, MAIN_SEED)
+    runs = {}
+    for name in ("fp32", "bf16"):
+        if name == "bf16":
+            weights = model.state_dict()
+            model = build_model(cfg, dtype=torch.bfloat16)
+            model.load_state_dict(weights)
+            del weights
+            torch.cuda.empty_cache()
+        out_dir = os.path.join(out_root, f"{tag}_{name}")
+        tg = make_track_generator(cfg, dataset, model, out_dir)
+        fg = keep_fg_masks(tg)
+        torch.cuda.reset_peak_memory_stats()
+        labels, counts, metas, launches = run_main_path(tg, frames, seq_id)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if launches["cluster_points_tiled"] != n_windows or launches["cluster_points_single"] \
+                or launches["cluster_points_reference"]:
+            raise AssertionError(f"path {tag} {name}: launches {launches}, expected "
+                                 f"{n_windows} of cluster_points_tiled")
+        if tuple(labels.shape) != expect_shape or len(counts) < 2:
+            raise AssertionError(f"path {tag} {name}: labels {tuple(labels.shape)}, "
+                                 f"{len(counts) - 1} tracks")
+        written = check_outputs(f"{tag} {name}", tg, out_dir, seq_id, frames)
+        runs[name] = {"fg": fg[0], "labels": labels.cpu().numpy() if torch.is_tensor(labels)
+                      else labels, "launches": launches, "peak_gib": peak_gib}
+        log(f"  path {tag} {name}: {len(metas)} windows, clusters per window "
+            f"{[int(m.valid.sum()) for m in metas]}, {len(counts) - 1} tracks, {written}, peak "
+            f"device memory {peak_gib:.2f} GiB; launches {launches}")
+        for line in tg.fps_report():
+            log(f"  path {tag} {name} (first run): {line}")
+        steady = make_track_generator(cfg, dataset, model, out_dir + "_steady")
+        run_main_path(steady, frames, seq_id)
+        runs[name]["fps"] = steady.fps_report()
+        for line in runs[name]["fps"]:
+            log(f"  path {tag} {name} steady ({smi}): {line}")
+        if name == "fp32" and tf32_reading:
+            # the first run picks cuDNN's TF32 engines; each run needs its own
+            # TrackGenerator, whose frame count the fps report divides
+            warm = make_track_generator(cfg, dataset, model, out_dir + "_tf32_warm")
+            tf32 = make_track_generator(cfg, dataset, model, out_dir + "_tf32")
+            set_tf32(True)
+            try:
+                run_main_path(warm, frames, seq_id)
+                run_main_path(tf32, frames, seq_id)
+                if not (torch.backends.cudnn.allow_tf32
+                        and torch.backends.cuda.matmul.allow_tf32):
+                    raise AssertionError(f"path {tag}: TF32 was switched off during the run")
+                runs["fp32"]["tf32_fps"] = tf32.fps_report()
+                for line in runs["fp32"]["tf32_fps"]:
+                    log(f"  path {tag} fp32 + TF32 steady ({smi}): {line}")
+                layer_split(f"{tag} fp32+TF32", tf32, frames, n_windows)
+            finally:
+                set_tf32(False)
+            del warm, tf32
+    window_ms, kernel_ms, shape = window_cluster_ms(steady, frames)
+    log(f"  path {tag} bf16: cluster_points_tiled on the first window's inputs {tuple(shape)} "
+        f"(float32, from the bf16 heads): {kernel_ms:.4f} ms")
+    parts = layer_split(f"{tag} bf16", steady, frames, n_windows, kernel_ms, window_ms)
+    device_profile(steady, frames, f"{tag} bf16")
+    fp32, bf16 = runs["fp32"], runs["bf16"]
+    fg_agree = float((fp32["fg"] == bf16["fg"]).mean())
+    raw = float((fp32["labels"] == bf16["labels"]).mean())
+    matched = matched_label_agreement(bf16["labels"], fp32["labels"])
+    log(f"  path {tag}: bf16 against fp32 on the same weights: fg masks agree on {fg_agree:.6f} "
+        f"of {fp32['fg'].size} pixels (fg share {fp32['fg'].mean():.3f} / "
+        f"{bf16['fg'].mean():.3f}), labels on {raw:.6f} ({matched:.6f} with the track ids "
+        f"matched one to one)")
+    if fg_agree < BF16_MIN_FG_AGREEMENT:
+        raise AssertionError(f"path {tag}: bf16 fg masks agree with fp32 on {fg_agree}")
+    del model, steady
+    torch.cuda.empty_cache()
+    return bf16["launches"], {"fg_agreement": fg_agree, "label_agreement": raw,
+                              "matched_label_agreement": matched, "layer_split_ms": parts,
+                              "kernel_ms_real_window": kernel_ms}
+
+
+def train_path_t_bf16(out_root, smi, frames):
+    """Phase 17: path T with ``training.mixed_precision`` for 4 steps: every
+    loss finite, every trainable tensor changed and float32, the frozen ones
+    unchanged; step time, micro-step split and profile, peak memory, and the
+    first step's losses against float32 path T's from the same seed (phase
+    11, its ``metrics.jsonl``); then train -> infer with the model in bf16.
+    Returns the launch counts and (kernel, ms on the first window)."""
+    import torch
+
+    from stemseg_tpu_torch.config import merge
+
+    cfg = merge(training_cfg("davis_1", 4), {"training": {"mixed_precision": True}})
+    assert_full_width("T", cfg)
+    model_dir = os.path.join(out_root, "T_bf16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = new_trainer(cfg, model_dir, "--save_interval", "2")
+    if trainer.model.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"path T bf16: the model computes in {trainer.model.compute_dtype}")
+    init = {k: v.detach().clone() for k, v in trainer.model.named_parameters()}
+    trainer.start()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    keys = ("total", "lovasz", "var_smoothness", "seediness", "total_embedding", "grad_norm")
+    records = read_metrics(model_dir, keys)
+    stale, moved = changed_params(trainer.model, init)
+    dtypes = {p.dtype for p in trainer.model.parameters()}
+    if [r["step"] for r in records] != [1, 2, 3, 4] or stale or moved or \
+            dtypes != {torch.float32}:
+        raise AssertionError(f"path T bf16: steps {[r['step'] for r in records]}, unchanged "
+                             f"trainable {stale[:3]}, changed frozen {moved[:3]}, {dtypes}")
+    fp32_first = read_metrics(os.path.join(out_root, "T"), keys)[0]
+    log(f"  path T bf16: 4 steps in {wall:.3f} s (build and first-step set-up included), peak "
+        f"device memory {peak_gib:.2f} GiB; every trainable tensor changed and float32, the "
+        f"frozen ones unchanged; step intervals "
+        f"{['%.4f' % s for s in steady_intervals(trainer, 0)]} s")
+    log("  path T bf16 step 1 against fp32 step 1 (same seed and batches): " + ", ".join(
+        f"{k} {records[0][k]:.5f} / {fp32_first[k]:.5f} "
+        f"({(records[0][k] - fp32_first[k]) / abs(fp32_first[k]):+.2e})" for k in keys))
+    training_timings("path T bf16", trainer, smi)
+    launches, real = train_then_infer(trainer, frames, out_root, dtype=torch.bfloat16,
+                                      tag="T_bf16")
+    del trainer, init
+    torch.cuda.empty_cache()
+    return launches, real
+
+
+def jax_variables_from_state_dict(sd):
+    """The JAX package's ``{'params', 'constants'}`` tree (numpy leaves) of a
+    state dict of the port's model: the inverse of
+    ``models.weights.state_dict_from_jax`` (conv kernels ``[O, I, (T,) H, W]``
+    -> ``[(T,) H, W, I, O]`` under ``.../conv/kernel``, GroupNorm affines
+    under ``.../gn/scale|bias``, FrozenBN statistics and ``time_scale`` in
+    ``constants``)."""
+    params, constants = {}, {}
+
+    def put(tree, path, value):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+
+    def kernel(w):
+        return w.transpose((2, 3, 1, 0) if w.ndim == 4 else (2, 3, 4, 1, 0)).copy()
+
+    def conv(tree_path, leaf, v):
+        put(params, tree_path + ("conv", "kernel" if leaf == "weight" else leaf),
+            kernel(v) if leaf == "weight" else v)
+
+    for key, t in sd.items():
+        v = t.detach().cpu().numpy()
+        parts = key.split(".")
+        leaf = parts[-1]
+        if parts[0] == "backbone" and parts[1] == "fpn":
+            conv(("fpn", parts[2]), leaf, v)
+        elif parts[0] == "backbone" and parts[2] == "stem":
+            if parts[3].startswith("conv"):
+                conv(("body", "stem", parts[3]), leaf, v)
+            else:
+                put(constants, ("body", "stem", parts[3], leaf), v)
+        elif parts[0] == "backbone":
+            block, mod = f"{parts[2]}_{parts[3]}", parts[4]
+            if mod == "downsample":
+                mod = {"0": "downsample_conv", "1": "downsample_bn"}[parts[5]]
+            if "conv" in mod:
+                conv(("body", block, mod), leaf, v)
+            else:
+                put(constants, ("body", block, mod, leaf), v)
+        elif leaf == "time_scale":
+            put(constants, tuple(parts), v)
+        elif parts[1].startswith("block_"):
+            slot, norm = divmod(int(parts[2]), 4)
+            name = f"{parts[1]}_{'norm' if norm else 'conv'}{slot}"
+            if norm:
+                put(params, (parts[0], "trunk", name, "gn",
+                             "scale" if leaf == "weight" else leaf), v)
+            else:
+                conv((parts[0], "trunk", name), leaf, v)
+        elif parts[1] in ("conv_16", "conv_8", "conv_4"):
+            conv((parts[0], "trunk", parts[1]), leaf, v)
+        else:
+            conv((parts[0], parts[1]), leaf, v)
+    return {"params": params, "constants": constants}
+
+
+def msgpack_pack(obj):
+    """msgpack bytes of ``obj`` as flax's ``msgpack_serialize`` writes them
+    (maps, lists, str, bytes, int, float, bool, None; numpy arrays as ext 1
+    ``(shape, dtype name, C-order bytes)``, numpy scalars as ext 3), so
+    that this script writes a JAX package ``.ckpt`` without flax or
+    msgpack."""
+    import struct
+
+    import numpy as np
+
+    out = bytearray()
+
+    def header(n, fix, fix_max, codes):
+        if fix is not None and n <= fix_max:
+            out.append(fix | n)
+            return
+        for code, fmt in codes:
+            if n < 256 ** struct.calcsize(fmt):
+                out.append(code)
+                out.extend(struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack: {n} is too long")
+
+    def ext(code, data):
+        header(len(data), None, 0, ((0xc7, ">B"), (0xc8, ">H"), (0xc9, ">I")))
+        out.extend(struct.pack(">b", code))
+        out.extend(data)
+
+    def put(o):
+        if o is None or isinstance(o, bool):
+            out.append({None: 0xc0, False: 0xc2, True: 0xc3}[o])
+        elif isinstance(o, int):
+            out.extend(b"\xd3" + struct.pack(">q", o) if o < 0 else b"\xcf" + struct.pack(">Q", o))
+        elif isinstance(o, float):
+            out.extend(b"\xcb" + struct.pack(">d", o))
+        elif isinstance(o, str):
+            data = o.encode("utf-8")
+            header(len(data), 0xa0, 31, ((0xd9, ">B"), (0xda, ">H"), (0xdb, ">I")))
+            out.extend(data)
+        elif isinstance(o, bytes):
+            header(len(o), None, 0, ((0xc4, ">B"), (0xc5, ">H"), (0xc6, ">I")))
+            out.extend(o)
+        elif isinstance(o, dict):
+            header(len(o), 0x80, 15, ((0xde, ">H"), (0xdf, ">I")))
+            for k, v in o.items():
+                put(k)
+                put(v)
+        elif isinstance(o, (list, tuple)):
+            header(len(o), 0x90, 15, ((0xdc, ">H"), (0xdd, ">I")))
+            for v in o:
+                put(v)
+        elif isinstance(o, (np.ndarray, np.generic)):
+            a = np.asarray(o)
+            ext(1 if isinstance(o, np.ndarray) else 3,
+                msgpack_pack([list(a.shape), a.dtype.name, a.tobytes(order="C")]))
+        else:
+            raise TypeError(f"msgpack: cannot pack {type(o).__name__}")
+
+    put(obj)
+    return bytes(out)
+
+
+def write_jax_session(pth, step, ckpt_path):
+    """The weights of the port trainer's ``pth`` as a JAX trainer's session
+    file: ``{"state": {"step", "params", "constants", "opt_state"}, "extra",
+    "step"}``, the optimizer state's top level as ``optax.MultiSteps``
+    writes it (its accumulated gradients zero). Raises unless the port's
+    ``state_dict_from_jax`` maps the tree back to the same tensors."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.models import state_dict_from_jax
+
+    sd = torch.load(pth, map_location="cpu", weights_only=True)["model"]
+    variables = jax_variables_from_state_dict(sd)
+    back = state_dict_from_jax(variables)
+    if back.keys() != sd.keys() or not all(torch.equal(back[k], sd[k].float()) for k in sd):
+        raise AssertionError("the JAX tree of the checkpoint does not map back to its weights")
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+
+    state = {"step": np.asarray(step, np.int32), **variables,
+             "opt_state": {"mini_step": np.asarray(0, np.int32),
+                           "gradient_step": np.asarray(step, np.int32),
+                           "inner_opt_state": {}, "acc_grads": zeros(variables["params"]),
+                           "skip_state": {}}}
+    data = msgpack_pack({"state": state, "extra": {"logger": {}}, "step": int(step)})
+    with open(ckpt_path, "wb") as fh:
+        fh.write(data)
+    return len(data)
+
+
+def cli_rest_phase(out_root, smi):
+    """Phase 18: path T's last checkpoint, written as a JAX trainer's
+    ``.ckpt`` (``write_jax_session``) beside its ``config.yaml``, through the
+    inference CLI's ``main`` (``--dataset davis`` on phase 14's
+    ``davis_val.json``) with ``--profile_clustering --save_vis --profile``,
+    and its ``.pth`` through ``main`` with no flag: equal labels, every
+    window through the clustering kernel the dispatch picks in both, the
+    clustering report's bucket, a JPEG a frame, a chrome trace with the
+    device's kernels. Returns the ``.ckpt`` run's launch counts."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.ops import launch_counts, reset_launch_counts
+    from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
+
+    pth = find_latest_checkpoint(os.path.join(out_root, "T"))
+    step = int(os.path.basename(pth).split(".")[0])
+    ckpt_dir = os.path.join(out_root, "T_jax")
+    os.makedirs(ckpt_dir)
+    shutil.copy(os.path.join(out_root, "T", "config.yaml"), ckpt_dir)
+    ckpt = os.path.join(ckpt_dir, f"{step:06d}.ckpt")
+    t0 = time.perf_counter()
+    n_bytes = write_jax_session(pth, step, ckpt)
+    log(f"  {os.path.basename(pth)} as a JAX session {ckpt}: {n_bytes / 1e6:.1f} MB in "
+        f"{time.perf_counter() - t0:.3f} s; its tree maps back to the same weights")
+
+    inner = cli.TrackGenerator._process_loaded
+    runs = {}
+    for kind, path, flags in (("pth", pth, []),
+                              ("ckpt", ckpt, ["--profile_clustering", "--save_vis", "--profile",
+                                              os.path.join(out_root, "trace")])):
+        seen = {}
+
+        def process_loaded(self, sequence, frames, image_hw, max_tracks, _seen=seen):
+            result = inner(self, sequence, frames, image_hw, max_tracks)
+            _seen["labels"] = np.asarray(result[0].cpu() if torch.is_tensor(result[0])
+                                         else result[0])
+            _seen["n_windows"], _seen["n_frames"] = len(result[3]), len(frames)
+            return result
+
+        cli.TrackGenerator._process_loaded = process_loaded
+        out_dir = os.path.join(out_root, "cli_" + kind)
+        printed = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                cli.main([path, "-o", out_dir, "--dataset", "davis", "-msp", "0.05", *flags])
+        finally:
+            cli.TrackGenerator._process_loaded = inner
+        seen["wall"] = time.perf_counter() - t0
+        seen["launches"] = dict(launch_counts)
+        seen["printed"] = printed.getvalue().splitlines()
+        runs[kind] = seen
+        tiled = seen["launches"]["cluster_points_tiled"]
+        if tiled != seen["n_windows"] or seen["launches"]["cluster_points_single"] \
+                or seen["launches"]["cluster_points_reference"]:
+            raise AssertionError(f"CLI {kind}: launches {seen['launches']}, expected "
+                                 f"{seen['n_windows']} of cluster_points_tiled")
+        log(f"  CLI on the .{kind} {' '.join(flags[:3])}: wall {seen['wall']:.3f} s; "
+            f"launches {seen['launches']}")
+        for line in seen["printed"]:
+            if "speed" in line or line.startswith("  "):
+                log(f"  CLI .{kind} ({smi}): {line}")
+    ckpt_run = runs["ckpt"]
+    if not np.array_equal(ckpt_run["labels"], runs["pth"]["labels"]):
+        raise AssertionError("CLI: the labels from the .ckpt differ from the .pth's")
+    t_win = cli.load_inference_cfg(ckpt, "davis", None, None, None).input.num_frames
+    n_points = ckpt_run["labels"][0].size * t_win
+    report = ckpt_run["printed"]
+    head = "Clustering durations by point count (points: calls, mean ms):"
+    if head not in report or not report[report.index(head) + 1].startswith(
+            f"  {n_points:>9d}: {ckpt_run['n_windows']:4d} calls, "):
+        raise AssertionError(f"CLI: no clustering report for {n_points} points in {report}")
+    vis = sorted(os.listdir(os.path.join(out_root, "cli_ckpt", "vis", "val0")))
+    if vis != [f"{t:05d}.jpg" for t in range(ckpt_run["n_frames"])] or \
+            os.path.exists(os.path.join(out_root, "cli_pth", "vis")):
+        raise AssertionError(f"CLI: --save_vis wrote {vis}")
+    trace = os.path.join(out_root, "trace", "trace.json")
+    with open(trace) as fh:
+        n_kernels = fh.read().count('"cat": "kernel"')
+    if not n_kernels:
+        raise AssertionError("CLI: the trace holds no device kernel")
+    log(f"  CLI: labels of the .ckpt equal to the .pth's ({ckpt_run['labels'].shape}); "
+        f"{len(vis)} JPEGs; trace {os.path.getsize(trace) / 1e6:.1f} MB with {n_kernels} "
+        f"device kernels")
+    return ckpt_run["launches"]
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "stemseg_tpu_torch")):
         sys.stderr.write("chip_smoke: run it from the root of a checkout\n")
@@ -1792,16 +2266,41 @@ def main():
         check_train_step_gpu_vs_cpu()
         launches_r, real_r = real_data_phases(out_root, smi)
 
+        log("== phase 16: bf16 inference at full width, paths A and C against fp32 "
+            "(A also fp32 with TF32)")
+        t_phase = time.perf_counter()
+        launches_a16, bf16_a = bf16_path("A", "davis_2", "davis", frames_a, "A", 2,
+                                         (26, 176, 312), out_root, smi, tf32_reading=True)
+        launches_c16, bf16_c = bf16_path("C", "youtube_vis", "ytvis",
+                                         synthetic_frames(20, 720, 1280, seed=MAIN_SEED), "C", 4,
+                                         (20, 160, 288), out_root, smi)
+        log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 17: training path T in bf16 (davis_1 synthetic, mixed_precision)")
+        t_phase = time.perf_counter()
+        launches_t16, real_t16 = train_path_t_bf16(
+            out_root, smi, synthetic_frames(16, 480, 854, seed=MAIN_SEED))
+        log(f"  phase 17: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 18: the inference CLI on path T's weights as a JAX .ckpt "
+            "(--profile_clustering --save_vis --profile) against its .pth")
+        t_phase = time.perf_counter()
+        launches_cli = cli_rest_phase(out_root, smi)
+        log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
+
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
     launches_by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d,
-                        "C'": launches_c2, "T": launches_t, "R": launches_r}
+                        "C'": launches_c2, "T": launches_t, "R": launches_r,
+                        "A bf16": launches_a16, "C bf16": launches_c16, "T bf16": launches_t16,
+                        "CLI .ckpt": launches_cli}
     launches = {name: sum(run[name] for run in launches_by_path.values()) for name in replaces}
     kernels["cluster_points_tiled"]["real_windows"] = {"C": real_c["kernel_ms_real_window"],
                                                        "D": real_d["kernel_ms_real_window"],
                                                        "C'": real_c2["kernel_ms_real_window"]}
     kernels[real_t[0]].setdefault("real_windows", {})["T"] = real_t[1]
     kernels[real_r[0]].setdefault("real_windows", {})["R"] = real_r[1]
+    kernels["cluster_points_tiled"]["real_windows"].update(
+        {"A bf16": bf16_a["kernel_ms_real_window"], "C bf16": bf16_c["kernel_ms_real_window"]})
+    kernels[real_t16[0]].setdefault("real_windows", {})["T bf16"] = real_t16[1]
     keys = ("max_abs_err", "label_mismatches", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_ms_per_call", "cold_l2_ms", "sync_floor_ms", "iterations",
             "points", "e_dims", "at_878592", f"at_{PATH_D_POINTS}_e3", f"at_{PATH_C2_POINTS}_e4",

@@ -8,15 +8,42 @@ tensors) and shifts the cluster slots to globally unique labels starting at
 as the JAX package keeps them: sticky stop below ``min_seediness_prob``,
 the seed pixel's own bandwidth, ``sqrt`` distance, farthest-cluster
 secondary assignment in "reference" mode and the stale availability mask.
+
+``ClusterTimeLog`` (``--profile_clustering``) buckets each call's duration
+by its point count, as the reference's ``ClustererBase`` does.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import time
+from collections import defaultdict
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from stemseg_tpu_torch.ops import cluster_points
+from stemseg_tpu_torch.utils.device import synchronize
+
+
+class ClusterTimeLog:
+    """Clustering durations (seconds) by point count. Timing a window
+    synchronises the device before and after it, so the log is kept only
+    when asked for."""
+
+    def __init__(self):
+        self._time_log = defaultdict(list)
+
+    def record(self, n_points: int, duration: float) -> None:
+        self._time_log[int(n_points)].append(duration)
+
+    @property
+    def average_time(self) -> float:
+        times = [t for v in self._time_log.values() for t in v]
+        return sum(times) / len(times) if times else 0.0
+
+    def summary(self) -> Dict[int, Tuple[int, float]]:
+        """{point count: (calls, mean seconds)}, by point count."""
+        return {p: (len(v), sum(v) / len(v)) for p, v in sorted(self._time_log.items())}
 
 
 class ClusterParams(NamedTuple):
@@ -39,13 +66,30 @@ class ClusterResult(NamedTuple):
 
 def cluster_window(embeddings: torch.Tensor, bandwidths: torch.Tensor,
                    seediness: torch.Tensor, fg_mask: torch.Tensor,
-                   params: ClusterParams, label_start: int = 1) -> ClusterResult:
-    """:param embeddings: [T, H, W, E] (grid offsets included)
+                   params: ClusterParams, label_start: int = 1,
+                   time_log: Optional[ClusterTimeLog] = None) -> ClusterResult:
+    """:param embeddings: [T, H, W, E] (grid offsets included), any float
+        dtype (clustered in float32)
     :param bandwidths: [T, H, W, E - n_free] activated (exp * 10)
     :param seediness: [T, H, W]
     :param fg_mask: [T, H, W] bool
+    :param time_log: if given, the call's duration is recorded under its
+        point count, between two device synchronisations
     :return: labels [T, H, W], ``label_start + k`` for slot k, -1 elsewhere
     """
+    if time_log is None:
+        return _cluster_window(embeddings, bandwidths, seediness, fg_mask, params,
+                               label_start)
+    synchronize(fg_mask.device)
+    start = time.perf_counter()
+    result = _cluster_window(embeddings, bandwidths, seediness, fg_mask, params, label_start)
+    synchronize(fg_mask.device)
+    time_log.record(fg_mask.numel(), time.perf_counter() - start)
+    return result
+
+
+def _cluster_window(embeddings, bandwidths, seediness, fg_mask, params: ClusterParams,
+                    label_start: int) -> ClusterResult:
     shape = fg_mask.shape
     e = embeddings.shape[-1]
     flat_emb = embeddings.reshape(-1, e).float()

@@ -20,6 +20,11 @@
   frame 0 averages every position), optionally after a trilinear upscale
   (``semseg_resize_scale``); the mean gives the fg mask and the multiclass
   output (``derive_masks``).
+* Precision follows the model's compute dtype (``build_model(dtype=)``):
+  the frames are preprocessed in float32, the feature rings and the heads'
+  outputs are in the compute dtype (the bandwidths' ``exp(.) * 10`` too),
+  and the window averages accumulate in float32; the clustering takes its
+  inputs as float32.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Inference CLI: ``python -m stemseg_tpu_torch.inference.main CKPT.pth -o DIR
---dataset {davis,ytvis,kittimots} [--resize_embeddings] [--device cuda]``.
+"""Inference CLI: ``python -m stemseg_tpu_torch.inference.main CKPT -o DIR
+--dataset {davis,ytvis,kittimots} [--resize_embeddings] [--bf16]
+[--profile_clustering] [--profile DIR] [--save_vis] [--device cuda]``.
 
 Per sequence: frame loading -> sliding-window engine (backbone + 3D heads)
 -> per-window clustering + cross-window chaining -> the dataset's writer
@@ -14,12 +15,22 @@ clusters at the network input scale: each window's semseg logits, and the
 embeddings, bandwidths and seediness handed to the clustering, are
 upscaled 4x trilinearly first.
 
+``--bf16`` runs the model in bfloat16 with float32 parameters; the frames
+are preprocessed, the windows averaged and clustered in float32.
+``--profile_clustering`` times each window's clustering between two device
+synchronisations and reports the durations by point count;
+``--profile DIR`` writes a ``torch.profiler`` chrome trace of the whole run
+to ``DIR/trace.json``; ``--save_vis`` has the DAVIS writer also write each
+frame with its tracks overlaid (``vis/<seq>/<t>.jpg``; the other writers
+take the flag and write none, as in the JAX package).
+
 Config resolution: ``config.yaml`` beside the checkpoint if present, else
 the dataset's preset (``davis_2``, ``youtube_vis``, ``kitti_mots_2``); CLI
 overrides for the input dims and the minimum seediness. Weights load from a
-``.pth``: a reference state dict, or a checkpoint of the port's trainer
-(its ``"model"`` entry), so the trainer's model dir (``{iter:06d}.pth``
-beside its ``config.yaml``) is read as it is.
+JAX package ``.ckpt`` (flax msgpack, its weights only) or a ``.pth``: a
+reference state dict, or a checkpoint of the port's trainer (its
+``"model"`` entry), so either trainer's model dir (checkpoints beside its
+``config.yaml``) is read as it is.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import numpy as np
 import torch
 
 from stemseg_tpu_torch.config import Config, load_config, load_preset, merge
+from stemseg_tpu_torch.utils.device import synchronize
 from stemseg_tpu_torch.utils.timer import Timer
 
 DATASET_PRESETS = {"davis": "davis_2", "ytvis": "youtube_vis", "kittimots": "kitti_mots_2"}
@@ -69,23 +81,18 @@ def load_inference_cfg(model_path: str, dataset: str, min_dim: Optional[int],
     return cfg
 
 
-def load_model(cfg: Config, model_path: str, device="cuda"):
-    """Build the model on ``device`` and load a reference ``.pth`` or a
-    checkpoint of the port's trainer."""
+def load_model(cfg: Config, model_path: str, device="cuda",
+               dtype: Optional[torch.dtype] = None):
+    """Build the model on ``device``, computing in ``dtype`` (None: float32),
+    and load a JAX package ``.ckpt``, a reference ``.pth`` or a checkpoint of
+    the port's trainer."""
     from stemseg_tpu_torch.models import build_model, load_state_dict_file
-    from stemseg_tpu_torch.models.weights import refuse_jax_checkpoint
 
-    refuse_jax_checkpoint(model_path)
-    if not model_path.endswith(".pth"):
-        raise ValueError(f"{model_path}: expected a .pth state dict or trainer checkpoint")
-    model = build_model(cfg, device=device)
+    if not model_path.endswith((".pth", ".ckpt")):
+        raise ValueError(f"{model_path}: expected a .pth or a JAX package .ckpt")
+    model = build_model(cfg, device=device, dtype=dtype)
     model.load_state_dict(load_state_dict_file(model_path))
     return model
-
-
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class TrackGenerator:
@@ -94,9 +101,18 @@ class TrackGenerator:
 
     def __init__(self, cfg: Config, dataset: str, model, output_generator,
                  max_tracks: int, seediness_thresh: float = 0.25,
-                 frame_overlap: int = -1, resize_embeddings: bool = False):
+                 frame_overlap: int = -1, resize_embeddings: bool = False,
+                 profile_clustering: bool = False):
+        """:param model: an ``STEmSegModel`` on its device; its compute dtype
+            is the run's
+        :param profile_clustering: keep a ``ClusterTimeLog`` of the windows'
+            clustering (a device synchronisation before and after each)"""
         from stemseg_tpu_torch.inference.chainer import OnlineChainer
-        from stemseg_tpu_torch.inference.clustering import ClusterParams, cluster_window
+        from stemseg_tpu_torch.inference.clustering import (
+            ClusterParams,
+            ClusterTimeLog,
+            cluster_window,
+        )
         from stemseg_tpu_torch.inference.engine import InferenceEngine
         from stemseg_tpu_torch.models.embedding_utils import get_nb_free_dims
         from stemseg_tpu_torch.models.layers import upsample_trilinear
@@ -131,6 +147,7 @@ class TrackGenerator:
             n_free_dims=get_nb_free_dims(cfg.model.embedding_dim_mode),
             free_dim_stds=tuple(cfg.training.losses.embedding.free_dim_stds),
             secondary_assignment=ccfg.secondary_assignment)
+        self.cluster_time_log = ClusterTimeLog() if profile_clustering else None
 
         def upscale(x):  # [T, h, w, C] -> [T, 4h, 4w, C]
             return upsample_trilinear(x.permute(3, 0, 1, 2)[None],
@@ -140,7 +157,7 @@ class TrackGenerator:
             if self.cluster_full_scale:
                 emb, bw, seed = upscale(emb), upscale(bw), upscale(seed[..., None])[..., 0]
             return cluster_window(emb, bw, seed, fg_mask, self.cluster_params,
-                                  label_start)
+                                  label_start, time_log=self.cluster_time_log)
 
         self.chainer = OnlineChainer(cluster_fn, max_instances=ccfg.max_instances)
         self.total_frames_processed = 0
@@ -175,14 +192,14 @@ class TrackGenerator:
             frames, windows, resize_hw=(new_h, new_w),
             seediness_fg_threshold=self.seediness_thresh,
             semseg_output_type=self.semseg_output_type)
-        _synchronize(self.device)
+        synchronize(self.device)
         return out
 
     @Timer.log_duration("postprocessing")
     def do_clustering(self, out):
         with torch.no_grad():
             result = self.chainer.process(out["fg_masks"], out["windows"])
-        _synchronize(self.device)
+        synchronize(self.device)
         return result
 
     def process_sequence(self, sequence, max_tracks: int):
@@ -216,9 +233,15 @@ class TrackGenerator:
         inf = max(Timer.get_duration("inference"), 1e-9)
         post = max(Timer.get_duration("postprocessing"), 1e-9)
         n = self.total_frames_processed
-        return [f"Model inference speed: {n / inf:.3f} fps",
-                f"Clustering and postprocessing speed: {n / post:.3f} fps",
-                f"Overall speed: {n / max(Timer.get_durations_sum(), 1e-9):.3f} fps"]
+        lines = [f"Model inference speed: {n / inf:.3f} fps",
+                 f"Clustering and postprocessing speed: {n / post:.3f} fps",
+                 f"Overall speed: {n / max(Timer.get_durations_sum(), 1e-9):.3f} fps"]
+        if self.cluster_time_log is not None:
+            lines.append("Clustering durations by point count (points: calls, mean ms):")
+            for pts, (calls, mean_s) in self.cluster_time_log.summary().items():
+                lines.append(f"  {pts:>9d}: {calls:4d} calls, {mean_s * 1e3:8.2f} ms")
+            lines.append(f"  average: {self.cluster_time_log.average_time * 1e3:.2f} ms")
+        return lines
 
     def print_fps_report(self):
         print("----------------------------------------------------")
@@ -242,6 +265,17 @@ def main(argv=None):
                         help="cluster at the network input scale (4x trilinear "
                              "upscale of each window's maps)")
     parser.add_argument("--min_seediness_prob", "-msp", type=float, required=False)
+    parser.add_argument("--save_vis", action="store_true",
+                        help="DAVIS: also write each frame with its tracks overlaid")
+    parser.add_argument("--bf16", action="store_true",
+                        help="run the model forward in bfloat16 (params stay "
+                             "fp32; clustering/averaging stay fp32)")
+    parser.add_argument("--profile_clustering", action="store_true",
+                        help="log per-window clustering durations bucketed by point "
+                             "count (a device synchronisation per window)")
+    parser.add_argument("--profile", metavar="DIR", required=False,
+                        help="write a torch.profiler chrome trace of the whole run "
+                             "to DIR/trace.json")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain versions of "
                              "the kernels")
@@ -258,6 +292,7 @@ def main(argv=None):
         KittiMOTSOutputGenerator,
         YoutubeVISOutputGenerator,
     )
+    from stemseg_tpu_torch.utils.profiling import start_trace, write_trace
 
     cfg = load_inference_cfg(args.model_path, args.dataset, args.min_dim,
                              args.max_dim, args.min_seediness_prob)
@@ -267,33 +302,38 @@ def main(argv=None):
         output_dir = os.path.join(os.path.dirname(args.model_path), output_dir)
     os.makedirs(output_dir, exist_ok=True)
 
-    upscaled = cfg.training.loss_at_full_res or args.resize_embeddings
+    writer_kw = dict(upscaled_inputs=cfg.training.loss_at_full_res or args.resize_embeddings,
+                     save_visualization=args.save_vis, device=args.device)
     if args.dataset == "davis":
         sequences, _ = parse_generic_video_dataset(
             DavisUnsupervisedPaths.trainval_base_dir(), DavisUnsupervisedPaths.val_vds_file())
-        output_generator = DavisOutputGenerator(output_dir, upscaled_inputs=upscaled,
-                                                device=args.device)
+        output_generator = DavisOutputGenerator(output_dir, **writer_kw)
         max_tracks = cfg.data.davis.max_inference_tracks
     elif args.dataset == "ytvis":
         sequences, _ = parse_generic_video_dataset(
             YoutubeVISPaths.val_base_dir(), YoutubeVISPaths.val_vds_file())
-        output_generator = YoutubeVISOutputGenerator(output_dir, upscaled_inputs=upscaled,
-                                                     device=args.device)
+        output_generator = YoutubeVISOutputGenerator(output_dir, **writer_kw)
         max_tracks = cfg.data.youtube_vis.max_inference_tracks
     else:
         sequences, _ = parse_generic_video_dataset(
             KITTIMOTSPaths.train_images_dir(), KITTIMOTSPaths.val_vds_file())
-        output_generator = KittiMOTSOutputGenerator(output_dir, upscaled_inputs=upscaled,
-                                                    device=args.device)
+        output_generator = KittiMOTSOutputGenerator(output_dir, **writer_kw)
         max_tracks = cfg.data.kitti_mots.max_inference_tracks
 
-    model = load_model(cfg, args.model_path, device=args.device)
+    model = load_model(cfg, args.model_path, device=args.device,
+                       dtype=torch.bfloat16 if args.bf16 else None)
     generator = TrackGenerator(cfg, args.dataset, model, output_generator,
                                args.max_tracks or max_tracks,
                                seediness_thresh=args.seediness_thresh,
                                frame_overlap=args.frame_overlap,
-                               resize_embeddings=args.resize_embeddings)
-    generator.start(sequences, args.seqs)
+                               resize_embeddings=args.resize_embeddings,
+                               profile_clustering=args.profile_clustering)
+    profiler = start_trace(generator.device) if args.profile else None
+    try:
+        generator.start(sequences, args.seqs)
+    finally:
+        if profiler is not None:
+            write_trace(profiler, args.profile, generator.device)
     output_generator.save()
     print(f"Results saved to {output_dir}")
 

@@ -8,17 +8,20 @@ the reference exactly:
    (``upscaled_inputs``, full-scale clustering);
 2. crop the /32 zero padding (to the ``compute_resize_params`` dims);
 3. resize bilinearly to the original image dims, threshold at 0.5.
+
+``annotate_instance`` draws one instance and its label on a frame.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from stemseg_tpu_torch.models.layers import resize_bilinear
 from stemseg_tpu_torch.structures.geometry import compute_resize_params
+from stemseg_tpu_torch.utils.vis import overlay_mask_on_image
 
 
 def masks_to_original_dims(masks: torch.Tensor, mask_scale: int,
@@ -56,3 +59,19 @@ def select_instances_to_keep(metric: Dict[int, int], outlier_label: int,
 def to_device(x, device: torch.device) -> torch.Tensor:
     """A tensor, or a copy of an array (read-only ones included), on ``device``."""
     return x.to(device) if torch.is_tensor(x) else torch.tensor(np.asarray(x), device=device)
+
+
+def annotate_instance(image: np.ndarray, mask: np.ndarray, color, text: Optional[str] = None,
+                      font_size: float = 0.5) -> np.ndarray:
+    """``image`` (``[H, W, 3]`` uint8) with ``mask`` blended in ``color`` and,
+    if given, ``text`` in white above the mask's top-left corner."""
+    import cv2
+
+    image = overlay_mask_on_image(image, mask.astype(bool), mask_color=color)
+    if text:
+        ys, xs = np.nonzero(mask)
+        if len(ys):
+            org = (int(xs.min()), max(int(ys.min()) - 2, 10))
+            cv2.putText(image, text, org, cv2.FONT_HERSHEY_SIMPLEX, font_size,
+                        (255, 255, 255), 1, cv2.LINE_AA)
+    return image

@@ -34,8 +34,11 @@ def _softmax(x: np.ndarray) -> np.ndarray:
 
 
 class YoutubeVISOutputGenerator:
-    def __init__(self, output_dir: str, upscaled_inputs: bool = False, device="cuda"):
+    def __init__(self, output_dir: str, upscaled_inputs: bool = False,
+                 save_visualization: bool = False, device="cuda"):
         """:param upscaled_inputs: labels come at the network input scale
+        :param save_visualization: taken from the CLI's ``--save_vis``; this
+            writer writes no visualisation (nor does the JAX package's)
         :param device: where the mask resize chain and the class vote run"""
         self.device = resolve_device(device)
         os.makedirs(output_dir, exist_ok=True)

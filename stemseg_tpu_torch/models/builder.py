@@ -13,6 +13,13 @@ stem and the stages below ``freeze_at_stage`` (``requires_grad_(False)``,
 so autograd prunes their backward as the JAX ``stop_gradient`` does), or
 the whole backbone, FPN included, with ``freeze_backbone``; and with
 ``training.loss_at_full_res`` it upscales both outputs 4x.
+
+``dtype`` is the compute dtype of every conv (None: float32), as the JAX
+package's ``build_model(..., dtype=)``: the parameters and buffers stay
+float32 (so their gradients are float32) and the layers cast in their
+forward; the heads' GroupNorms run in float32, as the JAX heads' do. A
+model built ``for_training`` with ``training.mixed_precision`` computes in
+bfloat16. The outputs are in the compute dtype.
 """
 
 from __future__ import annotations
@@ -56,8 +63,10 @@ class STEmSegModel(nn.Module):
     """Backbone + FPN + embedding head (seediness fused as its last channel,
     or a separate seediness head) + optional semseg head."""
 
-    def __init__(self, cfg: Config, for_training: bool = False, remat: bool = False):
+    def __init__(self, cfg: Config, for_training: bool = False, remat: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         m = cfg.model
         r = m.resnets
         specs = STAGE_SPECS[m.backbone.type]
@@ -65,9 +74,9 @@ class STEmSegModel(nn.Module):
                       width_per_group=r.width_per_group,
                       stem_out_channels=r.stem_out_channels,
                       res2_out_channels=r.res2_out_channels,
-                      stride_in_1x1=r.stride_in_1x1)
+                      stride_in_1x1=r.stride_in_1x1, dtype=dtype)
         stage_channels = [r.res2_out_channels * 2 ** (s.index - 1) for s in specs]
-        self.backbone = Backbone(body, FPN(stage_channels, r.backbone_out_channels),
+        self.backbone = Backbone(body, FPN(stage_channels, r.backbone_out_channels, dtype),
                                  remat=remat)
 
         c = r.backbone_out_channels
@@ -76,18 +85,18 @@ class STEmSegModel(nn.Module):
             c, tuple(e.inter_channels), e.embedding_size, m.embedding_dim_mode,
             e.tanh_activation, seediness_output=not m.use_seediness_head,
             num_frames=cfg.input.num_frames, norm_type=e.normalization_layer,
-            gn_groups=e.gn_num_groups, pool_type=e.pool_type)
+            gn_groups=e.gn_num_groups, pool_type=e.pool_type, dtype=dtype)
         s = m.seediness
         self.seediness_head = SeedinessDecoder(
             c, tuple(s.inter_channels), num_frames=cfg.input.num_frames,
             norm_type=s.normalization_layer, gn_groups=s.gn_num_groups,
-            pool_type=s.pool_type) if m.use_seediness_head else None
+            pool_type=s.pool_type, dtype=dtype) if m.use_seediness_head else None
         g = m.semseg
         self.semseg_head = SemsegDecoder(
             c, cfg.input.num_classes, tuple(g.inter_channels),
             foreground_channel=g.foreground_channel, num_frames=cfg.input.num_frames,
             norm_type=g.normalization_layer, gn_groups=g.gn_num_groups,
-            pool_type=g.pool_type) if m.use_semseg_head else None
+            pool_type=g.pool_type, dtype=dtype) if m.use_semseg_head else None
 
         self.output_resize_scale = 4.0 if for_training and cfg.training.loss_at_full_res else 1.0
         self.freeze_backbone = for_training and cfg.training.freeze_backbone
@@ -145,10 +154,14 @@ class STEmSegModel(nn.Module):
 
 
 def build_model(cfg: Config, device="cuda", for_training: bool = False,
-                remat: bool = False) -> STEmSegModel:
+                remat: bool = False, dtype: Optional[torch.dtype] = None) -> STEmSegModel:
     """The model on ``device`` (raises if CUDA is asked for and missing), in
     eval mode, or in train mode with its frozen parameters marked when
-    ``for_training``. Weights are PyTorch's default init until loaded."""
+    ``for_training``. Weights are PyTorch's default init until loaded.
+    ``dtype`` is the compute dtype; None gives bfloat16 for a training model
+    of a ``training.mixed_precision`` config, else float32."""
+    if dtype is None and for_training and cfg.training.mixed_precision:
+        dtype = torch.bfloat16
     dev = resolve_device(device)
-    model = STEmSegModel(cfg, for_training=for_training, remat=remat).to(dev)
+    model = STEmSegModel(cfg, for_training=for_training, remat=remat, dtype=dtype).to(dev)
     return model.train(for_training)

@@ -15,11 +15,15 @@ All three heads share one topology over the 4 FPN maps lifted to clips
 Module names are the reference state-dict keys: ``block_32x.4.weight`` is
 the second conv of the 32x block (each slot is conv, norm, ReLU, pool),
 ``conv_16.weight`` the first expand conv.
+
+With a compute ``dtype`` every conv of a head computes in it, and the
+expand step casts both of its inputs to it, as the JAX ``FuseConv`` does;
+the GroupNorms stay float32, as the JAX heads' do.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,8 +69,11 @@ def _norm(norm_type: str, gn_groups: int, channels: int) -> nn.Module:
 def _fuse(conv: nn.Conv3d, a: torch.Tensor, b: torch.Tensor,
           t_scale: float) -> torch.Tensor:
     in_a = a.shape[1]
-    ya = F.conv3d(a, conv.weight[:, :in_a])
-    yb = F.conv3d(b, conv.weight[:, in_a:])
+    weight = conv.weight
+    if conv.compute_dtype is not None:
+        a, b, weight = (t.to(conv.compute_dtype) for t in (a, b, weight))
+    ya = F.conv3d(a, weight[:, :in_a])
+    yb = F.conv3d(b, weight[:, in_a:])
     return upsample_trilinear(ya, (t_scale, 2.0, 2.0)) + yb
 
 
@@ -77,7 +84,7 @@ class SqueezeExpandDecoder(nn.Module):
     def __init__(self, in_channels: int,
                  inter_channels: Tuple[int, int, int, int] = (256, 256, 128, 128),
                  num_frames: int = 8, norm_type: str = "gn", gn_groups: int = 32,
-                 pool_type: str = "avg"):
+                 pool_type: str = "avg", dtype: Optional[torch.dtype] = None):
         super().__init__()
         c32, c16, c8, c4 = inter_channels
         pool_flags = get_pooling_flags(num_frames)
@@ -86,7 +93,7 @@ class SqueezeExpandDecoder(nn.Module):
         def block(n_slots, ch, pool=True):
             layers, c_in = [], in_channels
             for slot in range(n_slots):
-                layers += [make_conv(c_in, ch, (3, 3, 3)),
+                layers += [make_conv(c_in, ch, (3, 3, 3), dtype=dtype),
                            _norm(norm_type, gn_groups, ch), nn.ReLU()]
                 if pool:
                     layers.append(TemporalPool(pool_type) if pool_flags[slot]
@@ -98,9 +105,9 @@ class SqueezeExpandDecoder(nn.Module):
         self.block_16x = block(2, c16)
         self.block_8x = block(1, c8)
         self.block_4x = block(1, c4, pool=False)
-        self.conv_16 = make_conv(c32 + c16, c16, (1, 1, 1), bias=False)
-        self.conv_8 = make_conv(c16 + c8, c8, (1, 1, 1), bias=False)
-        self.conv_4 = make_conv(c8 + c4, c4, (1, 1, 1), bias=False)
+        self.conv_16 = make_conv(c32 + c16, c16, (1, 1, 1), bias=False, dtype=dtype)
+        self.conv_8 = make_conv(c16 + c8, c8, (1, 1, 1), bias=False, dtype=dtype)
+        self.conv_4 = make_conv(c8 + c4, c4, (1, 1, 1), bias=False, dtype=dtype)
 
     def trunk(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         if len(feats) != 4:
@@ -123,17 +130,17 @@ class EmbeddingDecoder(SqueezeExpandDecoder):
                  embedding_size: int = 3, embedding_dim_mode: str = "xyt",
                  tanh_activation: bool = True, seediness_output: bool = True,
                  num_frames: int = 8, norm_type: str = "gn", gn_groups: int = 32,
-                 pool_type: str = "avg"):
+                 pool_type: str = "avg", dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, inter_channels, num_frames, norm_type,
-                         gn_groups, pool_type)
+                         gn_groups, pool_type, dtype)
         self.embedding_dim_mode = embedding_dim_mode
         self.tanh_activation = tanh_activation
         c = inter_channels[-1]
         n_free = get_nb_free_dims(embedding_dim_mode)
         self.conv_embedding = make_conv(
-            c, get_nb_embedding_dims(embedding_dim_mode), (1, 1, 1), bias=False)
-        self.conv_variance = make_conv(c, embedding_size - n_free, (1, 1, 1))
-        self.conv_seediness = (make_conv(c, 1, (1, 1, 1), bias=False)
+            c, get_nb_embedding_dims(embedding_dim_mode), (1, 1, 1), bias=False, dtype=dtype)
+        self.conv_variance = make_conv(c, embedding_size - n_free, (1, 1, 1), dtype=dtype)
+        self.conv_seediness = (make_conv(c, 1, (1, 1, 1), bias=False, dtype=dtype)
                                if seediness_output else None)
         # 1.0 unless a checkpoint overwrites it
         self.register_buffer("time_scale", torch.tensor(1.0))
@@ -158,10 +165,10 @@ class SeedinessDecoder(SqueezeExpandDecoder):
     def __init__(self, in_channels: int,
                  inter_channels: Tuple[int, int, int, int] = (256, 256, 128, 128),
                  num_frames: int = 8, norm_type: str = "gn", gn_groups: int = 32,
-                 pool_type: str = "avg"):
+                 pool_type: str = "avg", dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, inter_channels, num_frames, norm_type,
-                         gn_groups, pool_type)
-        self.conv_out = make_conv(inter_channels[-1], 1, (1, 1, 1), bias=False)
+                         gn_groups, pool_type, dtype)
+        self.conv_out = make_conv(inter_channels[-1], 1, (1, 1, 1), bias=False, dtype=dtype)
 
     def forward(self, feats_coarsest_first: Sequence[torch.Tensor]) -> torch.Tensor:
         return torch.sigmoid(self.conv_out(self.trunk(feats_coarsest_first)))
@@ -175,11 +182,13 @@ class SemsegDecoder(SqueezeExpandDecoder):
     def __init__(self, in_channels: int, num_classes: int,
                  inter_channels: Tuple[int, int, int, int] = (256, 256, 128, 128),
                  foreground_channel: bool = True, num_frames: int = 8,
-                 norm_type: str = "gn", gn_groups: int = 32, pool_type: str = "avg"):
+                 norm_type: str = "gn", gn_groups: int = 32, pool_type: str = "avg",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, inter_channels, num_frames, norm_type,
-                         gn_groups, pool_type)
+                         gn_groups, pool_type, dtype)
         out_channels = num_classes + 1 if foreground_channel else num_classes
-        self.conv_out = make_conv(inter_channels[-1], out_channels, (1, 1, 1), bias=False)
+        self.conv_out = make_conv(inter_channels[-1], out_channels, (1, 1, 1), bias=False,
+                                  dtype=dtype)
 
     def forward(self, feats_coarsest_first: Sequence[torch.Tensor]) -> torch.Tensor:
         return self.conv_out(self.trunk(feats_coarsest_first))

@@ -7,7 +7,7 @@ reference ``.pth`` loads with ``load_state_dict`` as it is.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -36,27 +36,30 @@ STAGE_SPECS = {
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 bottleneck with FrozenBN and a projection shortcut
     when the channel count changes. ``stride_in_1x1`` puts the stride on the
-    first 1x1 conv (the convention of the pretrained Mask R-CNN weights)."""
+    first 1x1 conv (the convention of the pretrained Mask R-CNN weights).
+    The convs compute in ``dtype`` (None: the input's)."""
 
     def __init__(self, in_channels: int, bottleneck_channels: int,
                  out_channels: int, num_groups: int = 1,
-                 stride_in_1x1: bool = True, stride: int = 1):
+                 stride_in_1x1: bool = True, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = make_conv(in_channels, bottleneck_channels, (1, 1),
-                               stride=(stride_1x1, stride_1x1), bias=False)
+                               stride=(stride_1x1, stride_1x1), bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(bottleneck_channels)
         self.conv2 = make_conv(bottleneck_channels, bottleneck_channels, (3, 3),
                                stride=(stride_3x3, stride_3x3), padding=(1, 1),
-                               groups=num_groups, bias=False)
+                               groups=num_groups, bias=False, dtype=dtype)
         self.bn2 = FrozenBatchNorm(bottleneck_channels)
-        self.conv3 = make_conv(bottleneck_channels, out_channels, (1, 1), bias=False)
+        self.conv3 = make_conv(bottleneck_channels, out_channels, (1, 1), bias=False,
+                               dtype=dtype)
         self.bn3 = FrozenBatchNorm(out_channels)
         self.downsample = None
         if in_channels != out_channels:
             self.downsample = nn.Sequential(
                 make_conv(in_channels, out_channels, (1, 1),
-                          stride=(stride, stride), bias=False),
+                          stride=(stride, stride), bias=False, dtype=dtype),
                 FrozenBatchNorm(out_channels))
 
     def forward(self, x):
@@ -70,10 +73,10 @@ class Bottleneck(nn.Module):
 class Stem(nn.Module):
     """7x7/2 conv + FrozenBN + ReLU + 3x3/2 max pool."""
 
-    def __init__(self, out_channels: int = 64):
+    def __init__(self, out_channels: int = 64, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv1 = make_conv(3, out_channels, (7, 7), stride=(2, 2),
-                               padding=(3, 3), bias=False)
+                               padding=(3, 3), bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(out_channels)
 
     def forward(self, x):
@@ -87,9 +90,9 @@ class ResNet(nn.Module):
     def __init__(self, stage_specs: Sequence[StageSpec] = RESNET101_FPN_STAGES,
                  num_groups: int = 1, width_per_group: int = 64,
                  stem_out_channels: int = 64, res2_out_channels: int = 256,
-                 stride_in_1x1: bool = True):
+                 stride_in_1x1: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.stem = Stem(stem_out_channels)
+        self.stem = Stem(stem_out_channels, dtype=dtype)
         self.stage_specs = tuple(stage_specs)
         in_channels = stem_out_channels
         for spec in self.stage_specs:
@@ -102,7 +105,7 @@ class ResNet(nn.Module):
                 blocks.append(Bottleneck(
                     in_channels, bottleneck_channels, out_channels,
                     num_groups=num_groups, stride_in_1x1=stride_in_1x1,
-                    stride=first_stride if block_idx == 0 else 1))
+                    stride=first_stride if block_idx == 0 else 1, dtype=dtype))
                 in_channels = out_channels
             self.add_module(f"layer{spec.index}", nn.Sequential(*blocks))
 

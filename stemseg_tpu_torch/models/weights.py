@@ -1,11 +1,13 @@
-"""Weights for the port's model: from the JAX package's variable tree, from a
-reference ``.pth`` file, or random from a seed.
+"""Weights for the port's model: from the JAX package's variable tree or its
+``.ckpt`` file, from a reference ``.pth`` file, or random from a seed.
 
 ``state_dict_from_jax`` is the inverse of the JAX package's checkpoint
 converter: conv kernels go from ``[(T,) H, W, I, O]`` to
 ``[O, I, (T,) H, W]``, GroupNorm ``scale`` becomes ``weight``, and the
 ``constants`` collection (FrozenBN statistics, the embedding head's
-``time_scale``) becomes buffers. It works on numpy leaves and needs no JAX.
+``time_scale``) becomes buffers. It works on numpy leaves and needs no JAX;
+a JAX ``.ckpt`` is read by the port's own flax-msgpack reader
+(``models/flax_msgpack.py``).
 """
 
 from __future__ import annotations
@@ -81,20 +83,25 @@ def state_dict_from_jax(variables: Mapping[str, Mapping]) -> Dict[str, torch.Ten
     return out
 
 
-def refuse_jax_checkpoint(path: str) -> None:
-    """The JAX package's ``.ckpt`` (flax msgpack) is not read by the port."""
-    if path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's .ckpt (flax msgpack) is not read by this port "
-            "yet (ROADMAP A13); pass a .pth")
+def read_jax_checkpoint(path: str) -> Dict[str, Mapping]:
+    """The ``params`` and ``constants`` of a JAX package ``.ckpt``: a
+    trainer's session (under ``"state"``, beside its optimizer state, which
+    is not read) or a bare variable tree."""
+    from stemseg_tpu_torch.models.flax_msgpack import read_msgpack_file
+
+    payload = read_msgpack_file(path)
+    state = payload["state"] if "state" in payload else payload
+    return {"params": state["params"], "constants": state.get("constants", {})}
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference ``.pth`` (a state dict, or a training checkpoint with
-    the state dict under ``'model'``) into the port's key space: DDP
-    ``module.`` prefixes are dropped, and so are loss-criterion buffers,
-    which the config derives. A JAX ``.ckpt`` is refused."""
-    refuse_jax_checkpoint(path)
+    """Read weights into the port's key space: a JAX package ``.ckpt``
+    (through ``state_dict_from_jax``), or a reference ``.pth`` (a state dict,
+    or a training checkpoint with the state dict under ``'model'``), whose
+    DDP ``module.`` prefixes are dropped, and so are loss-criterion buffers,
+    which the config derives."""
+    if path.endswith(".ckpt"):
+        return state_dict_from_jax(read_jax_checkpoint(path))
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
         ckpt = ckpt["model"]

@@ -6,7 +6,8 @@ A checkpoint is ``{iter:06d}.pth`` in the model dir, a ``torch.save`` of
 reads, so the inference CLI loads a trained checkpoint as it is. Files are
 read with ``weights_only=True``. ``cleanup_old_checkpoints`` keeps the
 newest ``keep`` files (the reference's glob never matched, so it kept all).
-The JAX package's ``.ckpt`` (flax msgpack) is not read.
+A session is not restored from the JAX package's ``.ckpt``: its optimizer
+state is optax's (its weights alone load through ``--initial_ckpt``).
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ from glob import glob
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-
-from stemseg_tpu_torch.models.weights import refuse_jax_checkpoint
 
 CKPT_PATTERN = re.compile(r"^(\d{6})\.pth$")
 
@@ -36,7 +35,11 @@ def save_checkpoint(model_dir: str, step: int, model, optimizer, scheduler,
 def restore_checkpoint(path: str, model, optimizer, scheduler) -> Tuple[Dict[str, Any], int]:
     """Loads a session into ``model``, ``optimizer`` and ``scheduler`` in
     place. :return: (extra, step)"""
-    refuse_jax_checkpoint(path)
+    if path.endswith(".ckpt"):
+        raise NotImplementedError(
+            f"{path}: a session of the JAX package holds optax optimizer state, which "
+            "this trainer does not read (ROADMAP A25); pass it as --initial_ckpt to "
+            "start from its weights")
     device = next(model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(ckpt["model"])

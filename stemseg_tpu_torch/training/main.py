@@ -20,9 +20,12 @@ Every ``training.mode`` trains: ``davis``, ``youtube_vis`` and
 ``data/paths.py``; ``synthetic`` needs none. The real modes' datasets are
 built from ``INIT_SEED``, so a batch depends neither on
 ``--num_cpu_workers`` nor on a resume. It runs on the GPU unless
-``--device cpu`` is given. Not ported yet, and refused:
-``training.mixed_precision`` (bf16, ROADMAP A12), a JAX ``.ckpt`` (ROADMAP
-A13), more than one GPU (ROADMAP A19).
+``--device cpu`` is given. ``training.mixed_precision`` trains in bfloat16
+with float32 parameters, gradients, optimizer state and checkpoints.
+``--initial_ckpt`` takes a JAX package ``.ckpt`` as well as a ``.pth``
+(weights only); ``--restore_session`` refuses a ``.ckpt``, whose optimizer
+state is optax's (ROADMAP A25). More than one GPU is not supported (ROADMAP
+A19).
 """
 
 from __future__ import annotations
@@ -50,9 +53,6 @@ class Trainer:
         from stemseg_tpu_torch.training.step import TrainStep
         from stemseg_tpu_torch.utils.device import resolve_device
 
-        if cfg.training.mixed_precision:
-            raise NotImplementedError("training.mixed_precision (bf16) is not ported yet "
-                                      "(ROADMAP A12); set it to false")
         if args.restore_session and args.initial_ckpt:
             raise ValueError("--restore_session and --initial_ckpt exclude each other")
         self.cfg = cfg
@@ -98,7 +98,8 @@ class Trainer:
             self._load_initial_weights(args.initial_ckpt)
 
     def _load_initial_weights(self, path: str):
-        """Weights only, from a reference ``.pth`` or one of this trainer's."""
+        """Weights only, from a JAX package ``.ckpt``, a reference ``.pth`` or
+        one of this trainer's."""
         from stemseg_tpu_torch.models import load_state_dict_file
 
         missing, unexpected = self.model.load_state_dict(load_state_dict_file(path),
@@ -152,6 +153,7 @@ class Trainer:
     def start(self):
         from stemseg_tpu_torch.training.interrupt import InterruptException
         from stemseg_tpu_torch.training.loader import to_device
+        from stemseg_tpu_torch.utils.profiling import start_trace, write_trace
 
         self.interrupt.start()
         host_batches = iter(self.make_loader(self.args.num_cpu_workers))
@@ -173,7 +175,7 @@ class Trainer:
                 self.batch_shapes.append(tuple(host_batch["images"].shape))
                 if (self.args.profile and profiler is None
                         and sub_iter >= self.accumulate_steps):
-                    profiler = self._start_profiler()
+                    profiler = start_trace(self.device)
                     profile_until = self.elapsed_iterations + self.args.profile_steps
 
                 metrics = self.train_step(to_device(host_batch, self.device))
@@ -186,7 +188,7 @@ class Trainer:
                 self.elapsed_iterations += 1
                 self.iteration_end_times.append(time.perf_counter())
                 if profiler is not None and self.elapsed_iterations == profile_until:
-                    self._stop_profiler(profiler)
+                    write_trace(profiler, self.args.profile, self.device)
                 self.interrupt.raise_if_interrupted()
 
                 if self.elapsed_iterations % self.args.display_interval == 0:
@@ -219,32 +221,13 @@ class Trainer:
         finally:
             if profiler is not None and profile_until is not None \
                     and self.elapsed_iterations < profile_until:
-                self._stop_profiler(profiler)
+                write_trace(profiler, self.args.profile, self.device)
             del host_batches  # shuts the loader's workers down
             self.interrupt.stop()
             self.logger.close()
 
         print("Training complete")
         self.backup_session()
-
-    def _start_profiler(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
-        return profiler
-
-    def _stop_profiler(self, profiler):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        profiler.stop()
-        os.makedirs(self.args.profile, exist_ok=True)
-        path = os.path.join(self.args.profile, "trace.json")
-        profiler.export_chrome_trace(path)
-        print(f"Profile trace written to {path}")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -254,7 +237,8 @@ def make_parser() -> argparse.ArgumentParser:
                         help="preset name (e.g. davis_1) or a YAML / JSON path")
     parser.add_argument("--restore_session", type=str)
     parser.add_argument("--initial_ckpt", type=str,
-                        help="weights only: a reference .pth or one of this trainer's")
+                        help="weights only: a JAX package .ckpt, a reference .pth or one "
+                             "of this trainer's")
     parser.add_argument("--no_resume", action="store_true")
     parser.add_argument("--display_interval", type=int, default=5)
     parser.add_argument("--summary_interval", type=int, default=10)

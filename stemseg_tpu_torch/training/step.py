@@ -9,7 +9,9 @@ The same composition as the JAX package's ``training/step.py``:
   the semseg label map is the per-pixel max of the covering instances'
   category ids;
 * ``make_output_loss_fn``: embedding loss, plus fg BCE and cross entropy
-  with a semseg head; metric keys ``LossConsts`` + ``total``;
+  with a semseg head; metric keys ``LossConsts`` + ``total``; the model's
+  outputs (bfloat16 under ``training.mixed_precision``) are cast to
+  float32 first, so targets and losses are float32;
 * ``TrainStep``: gradients are averaged over the micro-steps with the
   running mean of ``optax.MultiSteps`` (``acc + (g - acc) / (k + 1)``);
   clipping, weight decay and the LR act on that mean at the update;

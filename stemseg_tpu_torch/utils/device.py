@@ -19,6 +19,12 @@ def set_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = ALLOW_TF32
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The torch device for an entry point; raises if CUDA is asked for (the
     default) and there is none."""

@@ -1,5 +1,5 @@
 """The Pascal-VOC palette used by the DAVIS PNG writer, and the mask
-overlay of the training loaders' debug CLI."""
+overlay of its visualisations and of the training loaders' debug CLI."""
 
 from __future__ import annotations
 

@@ -31,7 +31,8 @@ assert {"stemseg_tpu_torch.losses.lovasz", "stemseg_tpu_torch.training.main",
         "stemseg_tpu_torch.data.instance_duplicator", "stemseg_tpu_torch.data.video_dataset",
         "stemseg_tpu_torch.data.video_loaders", "stemseg_tpu_torch.data.image_clip_loaders",
         "stemseg_tpu_torch.data.concat_dataset",
-        "stemseg_tpu_torch.data.visualize_data_loading"} <= set(names)
+        "stemseg_tpu_torch.data.visualize_data_loading",
+        "stemseg_tpu_torch.models.flax_msgpack"} <= set(names)
 print(len(names), bad)
 """
 
@@ -46,8 +47,33 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_no_cuda_env(),
                          capture_output=True, text=True, timeout=300, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 61
+    assert int(n) >= 62
     assert bad == "[]", bad
+
+
+_READ_WITHOUT_JAX = """
+import sys
+for name in ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes", "stemseg_tpu"):
+    sys.modules[name] = None  # importing any of them raises
+from stemseg_tpu_torch.models.flax_msgpack import read_msgpack_file
+tree = read_msgpack_file(sys.argv[1])
+print(sorted(tree), tree["a"].dtype, tree["a"].tolist(), tree["b"], tree["c"].dtype)
+"""
+
+
+def test_the_ckpt_reader_needs_no_jax_flax_or_msgpack(tmp_path):
+    import flax.serialization
+    import ml_dtypes
+    import numpy as np
+
+    path = tmp_path / "x.ckpt"
+    path.write_bytes(flax.serialization.msgpack_serialize(
+        {"a": np.arange(3, dtype=np.float32), "b": [1, "x"],
+         "c": np.ones(2, ml_dtypes.bfloat16)}))
+    out = subprocess.run([sys.executable, "-c", _READ_WITHOUT_JAX, str(path)], cwd=REPO,
+                         env=_no_cuda_env(), capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert out.stdout.strip() == "['a', 'b', 'c'] float32 [0.0, 1.0, 2.0] [1, 'x'] torch.bfloat16"
 
 
 @pytest.mark.parametrize("name", ["davis_1", "davis_2", "kitti_mots_1", "kitti_mots_2",

@@ -12,9 +12,12 @@ two share a contract:
 * ``ckpts_to_keep``, ``--initial_ckpt`` warm start at iteration 0;
 * the saved ``config.yaml`` loads in the JAX ``load_config`` to the same
   tree; the trained ``.pth`` runs through the port's inference CLI;
-* ``--profile`` writes a trace; ``mixed_precision`` and a JAX ``.ckpt``
-  raise, and so do the real-data modes without their datasets; the loader
-  re-raises a worker's error and shuts its workers down.
+* ``--profile`` writes a trace; ``mixed_precision`` trains in bf16 with
+  float32 weights; ``--initial_ckpt`` and the inference CLI's loader read a
+  JAX ``.ckpt`` to the weights of the ``.pth``; ``--restore_session`` of a
+  JAX ``.ckpt`` raises, and so do the real-data modes without their
+  datasets; the loader re-raises a worker's error and shuts its workers
+  down.
 """
 
 import copy
@@ -263,20 +266,18 @@ def test_profile_writes_a_trace(tmp_path):
     assert any("conv" in e.get("name", "") for e in trace["traceEvents"])
 
 
-@pytest.mark.parametrize("case", ["mixed_precision", "davis", "youtube_vis", "kitti_mots",
-                                  "jax_ckpt"])
+@pytest.mark.parametrize("case", ["davis", "youtube_vis", "kitti_mots",
+                                  "restore_session_jax_ckpt"])
 def test_what_is_not_ported_raises(tmp_path, case, monkeypatch):
-    """What the port lacks raises; the real-data modes (ported) raise only
-    without their datasets, naming the first environment variable they
-    read."""
+    """What the port lacks raises: a session of the JAX package (optax
+    state) is not restored; the real-data modes (ported) raise only without
+    their datasets, naming the first environment variable they read."""
     over = copy.deepcopy(TRAIN_SMALL)
     extra = []
-    error, match = NotImplementedError, "ROADMAP"
-    if case == "mixed_precision":
-        over["training"]["mixed_precision"] = True
-    elif case == "jax_ckpt":
+    error, match = NotImplementedError, "ROADMAP A25"
+    if case == "restore_session_jax_ckpt":
         (tmp_path / "w.ckpt").write_bytes(b"\x80")
-        extra = ["--initial_ckpt", str(tmp_path / "w.ckpt")]
+        extra = ["--restore_session", str(tmp_path / "w.ckpt")]
     else:
         over["training"]["mode"] = case
         over["input"]["num_classes"] = {"davis": 2, "youtube_vis": 41, "kitti_mots": 3}[case]
@@ -290,11 +291,74 @@ def test_what_is_not_ported_raises(tmp_path, case, monkeypatch):
         run_trainer(tmp_path / "run", cfg_path, *extra)
 
 
-def test_inference_cli_refuses_a_jax_ckpt():
+def test_mixed_precision_trains_in_bf16_with_float32_weights(tmp_path):
+    over = copy.deepcopy(TRAIN_SMALL)
+    over["training"]["mixed_precision"] = True
+    trainer = run_trainer(tmp_path / "run", write_cfg(tmp_path, over))
+    assert trainer.elapsed_iterations == 4
+    assert trainer.model.compute_dtype == torch.bfloat16
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+    with open(tmp_path / "run" / "logs" / "metrics.jsonl") as fh:
+        records = [json.loads(line) for line in fh]
+    assert [r["step"] for r in records] == [2, 4]
+    assert all(np.isfinite(v) for r in records for v in r.values())
+    # the same run in float32 starts from the same weights and batches
+    fp32 = Trainer(load_config(TRAIN_SMALL), str(tmp_path / "fp32"),
+                   trainer_args(tmp_path / "fp32", write_cfg(tmp_path)))
+    assert fp32.model.compute_dtype is None
+
+
+@pytest.fixture(scope="module")
+def jax_session(tmp_path_factory):
+    """A JAX trainer's ``.ckpt`` of random weights (``save_checkpoint`` of its
+    ``TrainState``) and the port's ``.pth`` of the same weights."""
+    import jax
+
+    from stemseg_tpu.models import build_model as jax_build_model
+    from stemseg_tpu.training.checkpoint import save_checkpoint
+    from stemseg_tpu.training.step import create_train_state
+    from stemseg_tpu_torch.models import state_dict_from_jax
+    from test_torch_model import random_variables
+
+    jcfg = jax_load_config(TRAIN_SMALL)
+    jmodel = jax_build_model(jcfg, for_training=True)
+    variables = random_variables(jmodel, (1, 2, 64, 96, 3), 9)
+    state, _ = create_train_state(jmodel, jcfg, jax.random.PRNGKey(0),
+                                  np.zeros((1, 2, 64, 96, 3), np.float32))
+    root = tmp_path_factory.mktemp("jax_session")
+    ckpt = save_checkpoint(str(root), 6, state.replace(params=variables["params"],
+                                                       constants=variables["constants"]))
+    pth = str(root / "weights.pth")
+    torch.save(state_dict_from_jax(variables), pth)
+    return ckpt, pth
+
+
+def test_initial_ckpt_reads_a_jax_ckpt(tmp_path, jax_session):
+    ckpt, pth = jax_session
+    cfg_path = write_cfg(tmp_path)
+    warm = {}
+    for kind, path in (("ckpt", ckpt), ("pth", pth)):
+        args = trainer_args(tmp_path / kind, cfg_path, "--initial_ckpt", path)
+        warm[kind] = Trainer(load_config(cfg_path), str(tmp_path / kind), args)
+        assert warm[kind].elapsed_iterations == 0 and not warm[kind].optimizer.state
+    a, b = warm["ckpt"].model.state_dict(), warm["pth"].model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["backbone.fpn.fpn_inner1.weight"],
+                           Trainer(load_config(cfg_path), str(tmp_path / "cold"),
+                                   trainer_args(tmp_path / "cold", cfg_path)).model.state_dict()[
+                               "backbone.fpn.fpn_inner1.weight"])
+
+
+def test_inference_cli_reads_a_jax_ckpt(jax_session):
     from stemseg_tpu_torch.inference.main import load_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        load_model(load_config(TRAIN_SMALL), "model.ckpt", device="cpu")
+    ckpt, pth = jax_session
+    cfg = load_config(TRAIN_SMALL)
+    a = load_model(cfg, ckpt, device="cpu").state_dict()
+    b = load_model(cfg, pth, device="cpu").state_dict()
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    with pytest.raises(ValueError, match="expected a .pth or a JAX package .ckpt"):
+        load_model(cfg, "model.msgpack", device="cpu")
 
 
 def test_loader_reraises_a_worker_error_and_joins_its_threads():
