@@ -114,6 +114,28 @@ which raises on failure (the script then exits non-zero):
    clustering report's bucket, a JPEG a frame, a chrome trace with device
    kernels.
 
+19. the fused path: ``lsa_masked`` (the lsap kernel) against its plain
+   version and scipy on a fuzz set (heavy ties, random masks, tall, wide
+   and empty sides, sides up to 64), its device µs a call at the
+   association's 40x20 beside scipy's host µs; one CUDA graph holding both
+   clustering kernels replayed 4 times with new inputs (a window that stops
+   after one iteration, then one of 20 active iterations, twice), each
+   replay held against the plain version; then paths A, C, D, C′ and A in
+   bf16 through ``TrackGenerator`` on the fused path and on the streaming
+   path with the same model and frames: labels bit-identical, fg and
+   multiclass masks equal, writer files byte-equal, a fused run from the
+   upload to the dispatch's end under ``set_sync_debug_mode("error")``,
+   steady overall fps in turns (streaming, fused, fused, streaming), and a
+   profiled run of each (device busy share; the graph-replayed kernels'
+   launches, which the host counts do not see); last, one pass over DAVIS
+   2017 val's 30 sequence lengths (1,999 frames of 480x854, each sequence
+   once, ``davis_2`` in bf16) on each path: labels equal, overall fps, peak
+   memory, the fused pipeline's device states and captures.
+
+Phases 4-18 run the streaming path (``use_fused=False``), so their layer
+splits stay comparable; the inference CLI in phases 14 and 18 runs its
+default, the fused path (``--profile_clustering`` the streaming one),
+whose launches the profiler counts.
 Paths C, D and C′ print the fps report of their checked run and of a
 second, steady run, and the device time of each layer (CUDA events). The
 kernel's output on each path's first real window is held against the
@@ -801,13 +823,53 @@ def run_main_path(tg, frames, seq_id):
 
 
 def make_track_generator(cfg, dataset, model, out_dir, resize_embeddings=False,
-                         frame_overlap=-1):
+                         frame_overlap=-1, use_fused=False):
+    """A ``TrackGenerator`` into the dataset's writer; the streaming path
+    unless ``use_fused`` (the phases that split a path per window, 4-18,
+    keep the streaming path their tables were taken on)."""
     from stemseg_tpu_torch.inference.main import TrackGenerator
 
     writer = make_writer(dataset, out_dir, upscaled_inputs=resize_embeddings,
                          device=next(model.parameters()).device)
     return TrackGenerator(cfg, dataset, model, writer, max_tracks_of(cfg, dataset),
-                          frame_overlap=frame_overlap, resize_embeddings=resize_embeddings)
+                          frame_overlap=frame_overlap, resize_embeddings=resize_embeddings,
+                          use_fused=use_fused)
+
+
+def fused_first_run_launches(n_windows):
+    """Host launch counts of a kernel of pass B in a shape bucket's first
+    fused run: the first window's call runs eagerly (one launch), the
+    second is captured into a CUDA graph (counted once), every later call
+    replays the graph (not counted; the profiler counts replays)."""
+    return min(n_windows, 2)
+
+
+def profiled_launches(fn, expect, tag, attempts=2):
+    """Runs ``fn`` under torch.profiler and counts the device launches of
+    the clustering kernels and the lsap kernel, graph replays included
+    (the wrappers' host counts see only eager launches and captures).
+    ``expect()``, read after each run, gives the counts it must find; a
+    session that found others is run again (the profiler has been seen to
+    lose a launch on the H100, see ``device_kernels``), and the last one
+    raises. Returns the
+    counts, {"cluster_kernel": n, "lsa_kernel": n}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts = {"cluster_kernel": 0, "lsa_kernel": 0}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                for name in counts:
+                    counts[name] += name in evt.name
+        if counts == expect():
+            return counts
+        log(f"  {tag}: profiler session {attempt + 1} of {attempts} counted {counts}, "
+            f"expected {expect()}")
+    raise AssertionError(f"{tag}: device launches {counts}, expected {expect()}")
 
 
 def check_outputs(tag, tg, out_dir, seq_id, frames):
@@ -1601,7 +1663,8 @@ def train_then_infer_cli(trainer, out_root):
     davis``) on the written ``davis_val.json``: every window through the
     clustering kernel its dispatch picks, a PNG a frame; then the first
     window's kernel output held against the plain version. Returns the
-    CLI's launch counts and (the kernel, its ms on the first window)."""
+    CLI's launch counts (the kernel's and ``lsa_masked``'s from the
+    profiler) and (the kernel, its ms on the first window)."""
     import cv2
     import numpy as np
 
@@ -1616,33 +1679,45 @@ def train_then_infer_cli(trainer, out_root):
 
     ckpt = find_latest_checkpoint(trainer.model_dir)
     out_dir = os.path.join(out_root, "R_infer")
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    cli.main([ckpt, "-o", out_dir, "--dataset", "davis", "-msp", "0.05"])
-    wall = time.perf_counter() - t0
-    launches = dict(launch_counts)
-
     (seq,), _ = parse_generic_video_dataset(DavisUnsupervisedPaths.trainval_base_dir(),
                                             DavisUnsupervisedPaths.val_vds_file())
     frames = np.stack([cv2.imread(p, cv2.IMREAD_COLOR) for p in seq.frame_paths()])
     cfg = cli.load_inference_cfg(ckpt, "davis", None, None, 0.05)
+    n_windows = len(get_subsequence_frames(len(frames), cfg.input.num_frames,
+                                           cfg.data.davis.inference_frame_overlap))
+
+    def run_cli():
+        reset_launch_counts()
+        cli.main([ckpt, "-o", out_dir, "--dataset", "davis", "-msp", "0.05"])
+
+    # the CLI takes the fused path: its windows replay from CUDA graphs, so
+    # the profiler counts the launches
+    t0 = time.perf_counter()
+    device = profiled_launches(run_cli, lambda: {"cluster_kernel": n_windows,
+                                                 "lsa_kernel": n_windows}, "R train -> infer")
+    wall = time.perf_counter() - t0
+    host = dict(launch_counts)
+
     tg = make_track_generator(cfg, "davis", cli.load_model(cfg, ckpt, device="cuda"),
                               os.path.join(out_root, "R_infer_check"))
-    n_windows = len(get_subsequence_frames(len(frames), cfg.input.num_frames, tg.frame_overlap))
     h, w = pad_to_multiple(*resize_hw(cfg, frames))
     n_points = h // 4 * w // 4 * cfg.input.num_frames
     kernel = ("cluster_points_single" if single_block_supported(
         n_points, cfg.clustering.max_instances, cfg.model.embeddings.embedding_size)
         else "cluster_points_tiled")
     other = ({"cluster_points_single", "cluster_points_tiled"} - {kernel}).pop()
-    if launches[kernel] != n_windows or launches[other] or launches["cluster_points_reference"]:
-        raise AssertionError(f"R train -> infer: launches {launches}, expected {n_windows} "
-                             f"of {kernel}")
+    # on the host: the first window's eager launch and the second's capture
+    expect = fused_first_run_launches(n_windows)
+    if host[kernel] != expect or host[other] or host["cluster_points_reference"]:
+        raise AssertionError(f"R train -> infer: host launches {host}, expected {expect} "
+                             f"of {kernel} (fused path, {n_windows} windows)")
+    launches = dict(host, **{kernel: device["cluster_kernel"], "lsa_masked": device["lsa_kernel"]})
     written = check_outputs("R", tg, out_dir, seq.id, frames)
     log(f"  train -> infer (R): {os.path.basename(ckpt)} + config.yaml through the inference "
-        f"CLI on davis_val.json ({len(frames)} frames of {frames.shape[1]}x{frames.shape[2]}): "
-        f"{n_windows} windows through {kernel}, {written}, wall {wall:.3f} s; launches "
-        f"{launches}")
+        f"CLI (fused path) on davis_val.json ({len(frames)} frames of {frames.shape[1]}x"
+        f"{frames.shape[2]}): {n_windows} windows through {kernel}, {written}, wall "
+        f"{wall:.3f} s under torch.profiler; device launches {device} (profiler), host "
+        f"{host} (first window eager, second captured, the rest replayed)")
     window_ms, kernel_ms, shape = window_cluster_ms(tg, frames)
     if shape[0] != n_points:
         raise AssertionError(f"R train -> infer: first window of {tuple(shape)}, expected "
@@ -2067,7 +2142,8 @@ def cli_rest_phase(out_root, smi):
     and its ``.pth`` through ``main`` with no flag: equal labels, every
     window through the clustering kernel the dispatch picks in both, the
     clustering report's bucket, a JPEG a frame, a chrome trace with the
-    device's kernels. Returns the ``.ckpt`` run's launch counts."""
+    device's kernels. Returns the ``.ckpt`` run's launch counts (host) and
+    the ``.pth`` run's (the profiler's: the fused path replays graphs)."""
     import contextlib
     import io
     import shutil
@@ -2076,6 +2152,7 @@ def cli_rest_phase(out_root, smi):
     import torch
 
     from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.inference.windows import get_subsequence_frames
     from stemseg_tpu_torch.ops import launch_counts, reset_launch_counts
     from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
 
@@ -2101,36 +2178,61 @@ def cli_rest_phase(out_root, smi):
             result = inner(self, sequence, frames, image_hw, max_tracks)
             _seen["labels"] = np.asarray(result[0].cpu() if torch.is_tensor(result[0])
                                          else result[0])
-            _seen["n_windows"], _seen["n_frames"] = len(result[3]), len(frames)
+            _seen["n_windows"] = len(get_subsequence_frames(
+                len(frames), self.cfg.input.num_frames, self.frame_overlap))
+            _seen["n_frames"], _seen["fused"] = len(frames), result[3] is None
             return result
 
         cli.TrackGenerator._process_loaded = process_loaded
         out_dir = os.path.join(out_root, "cli_" + kind)
         printed = io.StringIO()
-        reset_launch_counts()
+
+        def run_cli(_argv=[path, "-o", out_dir, "--dataset", "davis", "-msp", "0.05", *flags],
+                    _printed=printed):
+            reset_launch_counts()
+            _printed.seek(0)
+            _printed.truncate()
+            with contextlib.redirect_stdout(_printed):
+                cli.main(_argv)
+
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(printed):
-                cli.main([path, "-o", out_dir, "--dataset", "davis", "-msp", "0.05", *flags])
+            if kind == "pth":
+                # the fused path replays its windows from CUDA graphs: the
+                # profiler counts the launches (the .ckpt run profiles itself)
+                seen["device"] = profiled_launches(
+                    run_cli, lambda: {"cluster_kernel": seen["n_windows"],
+                                      "lsa_kernel": seen["n_windows"]}, "CLI .pth")
+            else:
+                run_cli()
         finally:
             cli.TrackGenerator._process_loaded = inner
         seen["wall"] = time.perf_counter() - t0
         seen["launches"] = dict(launch_counts)
         seen["printed"] = printed.getvalue().splitlines()
         runs[kind] = seen
+        # with no flag the CLI takes the fused path (on the host: the first
+        # window's eager launch and the second's capture), with
+        # --profile_clustering the streaming one
+        expect = (fused_first_run_launches(seen["n_windows"]) if kind == "pth"
+                  else seen["n_windows"])
         tiled = seen["launches"]["cluster_points_tiled"]
-        if tiled != seen["n_windows"] or seen["launches"]["cluster_points_single"] \
+        if seen["fused"] != (kind == "pth") or tiled != expect \
+                or seen["launches"]["cluster_points_single"] \
                 or seen["launches"]["cluster_points_reference"]:
-            raise AssertionError(f"CLI {kind}: launches {seen['launches']}, expected "
-                                 f"{seen['n_windows']} of cluster_points_tiled")
-        log(f"  CLI on the .{kind} {' '.join(flags[:3])}: wall {seen['wall']:.3f} s; "
-            f"launches {seen['launches']}")
+            raise AssertionError(f"CLI {kind}: fused {seen['fused']}, launches "
+                                 f"{seen['launches']}, expected {expect} of cluster_points_tiled")
+        log(f"  CLI on the .{kind} {' '.join(flags[:3])} ({'fused' if seen['fused'] else 'streaming'}"
+            f" path): wall {seen['wall']:.3f} s{' under torch.profiler' if kind == 'pth' else ''}; "
+            f"host launches {seen['launches']}"
+            + (f", device launches {seen['device']} (profiler)" if kind == "pth" else ""))
         for line in seen["printed"]:
             if "speed" in line or line.startswith("  "):
                 log(f"  CLI .{kind} ({smi}): {line}")
     ckpt_run = runs["ckpt"]
     if not np.array_equal(ckpt_run["labels"], runs["pth"]["labels"]):
-        raise AssertionError("CLI: the labels from the .ckpt differ from the .pth's")
+        raise AssertionError("CLI: the labels from the .ckpt (streaming) differ from the "
+                             ".pth's (fused)")
     t_win = cli.load_inference_cfg(ckpt, "davis", None, None, None).input.num_frames
     n_points = ckpt_run["labels"][0].size * t_win
     report = ckpt_run["printed"]
@@ -2150,7 +2252,533 @@ def cli_rest_phase(out_root, smi):
     log(f"  CLI: labels of the .ckpt equal to the .pth's ({ckpt_run['labels'].shape}); "
         f"{len(vis)} JPEGs; trace {os.path.getsize(trace) / 1e6:.1f} MB with {n_kernels} "
         f"device kernels")
-    return ckpt_run["launches"]
+    device = runs["pth"]["device"]
+    return ckpt_run["launches"], {"cluster_points_single": 0,
+                                  "cluster_points_tiled": device["cluster_kernel"],
+                                  "lsa_masked": device["lsa_kernel"]}
+
+
+LSA_FUZZ_CASES = 300
+LSA_TIMED_SHAPE = (40, 20)  # the association's band x K at K = 20 (paths A-D)
+
+
+def lsa_fuzz_cases(seed=MAIN_SEED, n=LSA_FUZZ_CASES, dyadic=True):
+    """The lsap fuzz set: (cost [R, C] float32, row mask, column mask).
+    Costs: heavy integer ties (0..2), quarters, uniform, and IoU-shaped
+    (``1 - IoU``, most entries exactly 1); masks kept with probability 0,
+    0.3, 0.6 or 1 (empty sides included); every fifth case the association
+    shape ``LSA_TIMED_SHAPE`` (IoU costs, rows kept with probability 0.5,
+    columns 0.9), every tenth (from the third) an 8-frame
+    window's band at DAVIS's overlap, 80 x 20, every twenty-fifth (from the
+    tenth) 300 x 20 or 20 x 300, the others tall, wide or square up to 64.
+    With ``dyadic`` the uniform and IoU costs are rounded to 1/1024, so
+    that the solver's float32 sums of them are exact and scipy's float64
+    solve takes the same decisions as float32; without it they keep every
+    bit (for the kernel against its plain version, both float32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    for i in range(n):
+        r, c = (int(rng.integers(1, 65)), int(rng.integers(1, 65)))
+        if i % 5 == 0:
+            r, c = LSA_TIMED_SHAPE
+        elif i % 10 == 3:
+            r, c = 80, 20
+        elif i % 25 == 9:
+            r, c = (300, 20) if i % 50 == 9 else (20, 300)
+        # the timed shape as the association's: IoU costs, most rows and columns kept
+        timed = (r, c) == LSA_TIMED_SHAPE
+        kind = 3 if timed else i % 4
+        if kind == 0:
+            cost = rng.integers(0, 3, (r, c)).astype(np.float32)
+        elif kind == 1:
+            cost = (np.round(rng.random((r, c)) * 4) / 4).astype(np.float32)
+        elif kind == 2:
+            cost = rng.random((r, c))
+        else:
+            inter = rng.integers(0, 50, (r, c)) * (rng.random((r, c)) < 0.15)
+            n1, n2 = rng.integers(50, 200, r), rng.integers(50, 200, c)
+            cost = 1.0 - inter / (n1[:, None] + n2[None, :] - inter)
+        cost = (np.round(cost * 1024) / 1024 if dyadic else cost).astype(np.float32)
+        keep_r, keep_c = (0.5, 0.9) if timed else (
+            (0.0, 0.3, 0.6, 1.0)[i % 4], (1.0, 0.6, 0.3, 0.0)[(i // 4) % 4])
+        cases.append((cost, rng.random(r) < keep_r, rng.random(c) < keep_c))
+    return cases
+
+
+def scipy_masked(cost, row_valid, col_valid):
+    """scipy's assignment on the compacted matrix, in the original index
+    space (-1 where unmatched or invalid), and its host seconds."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    rows, cols = np.where(row_valid)[0], np.where(col_valid)[0]
+    c4r = np.full(len(row_valid), -1, np.int32)
+    r4c = np.full(len(col_valid), -1, np.int32)
+    t0 = time.perf_counter()
+    if len(rows) and len(cols):
+        rr, cc = linear_sum_assignment(cost[np.ix_(rows, cols)])
+    else:
+        rr = cc = []
+    seconds = time.perf_counter() - t0
+    for a, b in zip(rr, cc):
+        c4r[rows[a]], r4c[cols[b]] = cols[b], rows[a]
+    return c4r, r4c, seconds
+
+
+def check_lsap():
+    """Phase 19: ``lsa_masked`` (the CUDA kernel) against its plain version
+    and scipy on the fuzz set, exactly, and against its plain version on
+    the set's unrounded twin; at the association shape its device
+    time per call (20 calls queued, CUDA events; and the profiler's), its
+    host time per call, scipy's host time, the plain version's, and the
+    bound. Returns the kernel table's row."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.ops import lsap
+
+    cases = lsa_fuzz_cases()
+    scipy_masked(*cases[0])  # scipy's first call loads it
+    timed, scipy_s, plain_s, steps = [], [], [], []
+    n_empty = n_tall = n_wide = 0
+    for i, (cost, rv, cv) in enumerate(cases):
+        want_c4r, want_r4c, seconds = scipy_masked(cost, rv, cv)
+        cpu = [torch.from_numpy(x) for x in (cost, rv, cv)]
+        stats = {}
+        t0 = time.perf_counter()
+        plain = lsap.lsa_masked_reference(*cpu, stats=stats)
+        plain_seconds = time.perf_counter() - t0
+        dev = [x.cuda() for x in cpu]
+        got = [t.cpu().numpy() for t in lsap.lsa_masked(*dev)]
+        for name, (c4r, r4c) in (("plain", [t.numpy() for t in plain]), ("kernel", got)):
+            if not (np.array_equal(c4r, want_c4r) and np.array_equal(r4c, want_r4c)):
+                raise AssertionError(f"lsa_masked {name}, case {i} {cost.shape} rows "
+                                     f"{int(rv.sum())} cols {int(cv.sum())}: differs from scipy")
+        n_empty += int(not rv.any() or not cv.any())
+        n_tall += int(rv.sum() > cv.sum() > 0)
+        n_wide += int(0 < rv.sum() < cv.sum())
+        if cost.shape == LSA_TIMED_SHAPE:
+            timed.append(dev)
+            scipy_s.append(seconds)
+            plain_s.append(plain_seconds)
+            steps.append((stats.get("steps", 0), max(cost.shape)))
+    n_raw = LSA_FUZZ_CASES // 3
+    for i, (cost, rv, cv) in enumerate(lsa_fuzz_cases(MAIN_SEED + 1, n_raw, dyadic=False)):
+        cpu = [torch.from_numpy(x) for x in (cost, rv, cv)]
+        plain = [t.numpy() for t in lsap.lsa_masked_reference(*cpu)]
+        got = [t.cpu().numpy() for t in lsap.lsa_masked(*[x.cuda() for x in cpu])]
+        if not all(np.array_equal(a, b) for a, b in zip(plain, got)):
+            raise AssertionError(f"lsa_masked, unrounded case {i} {cost.shape}: the kernel "
+                                 "differs from its plain version")
+    log(f"  lsa_masked: {len(cases)} fuzz cases (sides up to 300; {n_empty} with an empty side, "
+        f"{n_tall} tall, {n_wide} wide after the masks), kernel and plain version equal to scipy; "
+        f"{n_raw} unrounded float cases, kernel equal to its plain version")
+    calls = iter(range(10 ** 9))
+
+    def one():
+        lsap.lsa_masked(*timed[next(calls) % len(timed)])
+
+    ms = time_cuda(one, 20 * len(timed), queue_first=True)
+    per_call = device_kernels(one, len(timed))
+    device_ms = sum(m for k, (c, m) in per_call.items() if "lsa_kernel" in k)
+    r, c = LSA_TIMED_SHAPE
+    n_bytes = r * c * 4 + r + c + 4 * (r + c)
+    # each augmenting step touches every column once: add, two subtracts, compare
+    n_ops = sum(s * b * 4 for s, b in steps) / len(steps)
+    bytes_ms, ops_ms = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_FP32_OPS_PER_S * 1e3
+    row = {"ms": ms, "device_ms": device_ms, "host_ms_per_call": host_ms_per_call(one, 50),
+           "plain_ms": sum(plain_s) / len(plain_s) * 1e3,
+           "library_ms": sum(scipy_s) / len(scipy_s) * 1e3,
+           "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+           else "operations", "max_abs_err": 0, "shape": list(LSA_TIMED_SHAPE),
+           "steps_per_call": sum(s for s, _ in steps) / len(steps), "fuzz_cases": len(cases)}
+    log(f"  lsa_masked at {r}x{c} ({len(timed)} matrices, {row['steps_per_call']:.1f} augmenting "
+        f"steps a call): kernel {ms * 1e3:.2f} us (events), device {device_ms * 1e3:.2f} us "
+        f"(profiler), host {row['host_ms_per_call'] * 1e3:.2f} us a call; scipy "
+        f"{row['library_ms'] * 1e3:.2f} us (host, compacted matrix); plain version "
+        f"{row['plain_ms']:.3f} ms (CPU); bound {row['bound_ms'] * 1e3:.5f} us ({row['bound_by']})")
+    return row
+
+
+def check_graph_replays(ops):
+    """Phase 19: one CUDA graph holding ``cluster_points_single`` (207,360
+    points) and ``cluster_points_tiled`` (878,592), E = 4, K = 20, replayed
+    4 times with new inputs copied in between: a window that stops after one
+    iteration (every seediness below ``min_seediness``), then one whose 20
+    iterations are all active, twice. Each replay's labels and meta are held
+    against the plain version (``compare_with_plain``). A nonce passed from
+    the host would be the same in every replay, and the second window would
+    read the first one's leftover records as its own."""
+    import torch
+
+    kw = main_kwargs()
+    sizes = {"cluster_points_single": 207_360, "cluster_points_tiled": 878_592}
+    inputs = {}
+    for name, p in sizes.items():
+        full = [torch.from_numpy(x).cuda() for x in mixture_points(p, seed=11, n_clusters=24,
+                                                                   noise=0.02)]
+        early = [t.clone() for t in full]
+        early[2] *= 0.5  # every seediness under min_seediness 0.8
+        inputs[name] = {"early": early, "full": full}
+    static = {name: [t.clone() for t in v["early"]] for name, v in inputs.items()}
+    stream = torch.cuda.Stream()
+    ops.prepare_records(stream)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up on the capture stream
+        for name in sizes:
+            getattr(ops, name)(*static[name], **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = {name: getattr(ops, name)(*static[name], **kw) for name in sizes}
+    readings = []
+    for kind in ("early", "full", "early", "full"):
+        for name in sizes:
+            for dst, src in zip(static[name], inputs[name][kind]):
+                dst.copy_(src)
+        graph.replay()
+        for name, (labels, meta) in outs.items():
+            n_valid, n_mism, _ = compare_with_plain(ops, f"graph replay {kind} {name}",
+                                                    static[name], labels.clone(), meta.clone(),
+                                                    kw)
+            want = 0 if kind == "early" else 20
+            if n_valid != want:
+                raise AssertionError(f"graph replay {kind} {name}: {n_valid} clusters, "
+                                     f"expected {want}")
+            readings.append(f"{kind} {name.split('_')[-1]} {n_valid} clusters, {n_mism} knife")
+    per_replay = device_kernels(graph.replay, 5)
+    n_cluster = sum(c for k, (c, _) in per_replay.items() if "cluster_kernel" in k)
+    if n_cluster != 2:
+        raise AssertionError(f"graph replay ran {per_replay}, expected 2 clustering kernels")
+    log(f"  one CUDA graph of both clustering kernels, 4 replays: {'; '.join(readings)}; "
+        f"meta equal, labels exact but knife-edge points; the profiler sees {n_cluster} "
+        "clustering kernels a replay")
+
+
+def tree_bytes(root):
+    """{relative path: bytes} of the files under ``root`` (zip archives left
+    out: they stamp the time)."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".zip"):
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def keep_outputs(tg):
+    """Has ``tg`` keep the fg and multiclass masks of its last sequence (on
+    the host) from whichever path it takes."""
+    import torch
+
+    seen = {}
+
+    def host(x):
+        return None if x is None else (x.cpu().numpy() if torch.is_tensor(x) else x)
+
+    inner_inf, inner_fused = tg.do_inference, tg.do_fused
+
+    def do_inference(frames, image_hw):
+        out = inner_inf(frames, image_hw)
+        seen.update(fg=host(out["fg_masks"]), mc=host(out["multiclass_masks"]))
+        return out
+
+    def do_fused(frames, image_hw):
+        out = inner_fused(frames, image_hw)
+        seen.update(fg=host(out[3]), mc=host(out[4]))
+        return out
+
+    tg.do_inference, tg.do_fused = do_inference, do_fused
+    return seen
+
+
+def profile_run(tg, frames, seq_id, writer=False):
+    """One sequence through ``tg`` under torch.profiler: (device busy share
+    of the wall, {kernel name: launches}, wall ms). The wall is the CLI's
+    timed phases (``do_fused``, or ``do_inference`` + ``do_clustering``);
+    with ``writer`` the whole ``_process_loaded``, the writer included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seq = Sequence(seq_id, len(frames), frames.shape[1:3])
+    hw = frames.shape[1:3]
+    for attempt in range(2):  # a session without device events is profiled again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if writer:
+                tg._process_loaded(seq, frames, hw, tg.max_tracks)
+            elif tg.fused is not None:
+                tg.do_fused(frames, hw)
+            else:
+                tg.do_clustering(tg.do_inference(frames, hw))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, counts = 0.0, {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                busy += evt.time_range.elapsed_us()
+                counts[evt.name] = counts.get(evt.name, 0) + 1
+        if counts:
+            return busy / wall_us, counts, wall_us / 1e3
+        log(f"  profile {seq_id}: no device event in session {attempt + 1} of 2")
+    raise RuntimeError(f"{seq_id}: torch.profiler recorded no device event")
+
+
+def fused_path(tag, preset, dataset, frames, seq_id, out_root, smi, resize_embeddings=False,
+               bf16=False):
+    """Phase 19, one path: the same model and frames through the streaming
+    and the fused path of ``TrackGenerator``. The fused path's first run
+    (its bodies warmed, the ones called twice captured) must launch the
+    clustering kernel and the lsap kernel; its second (the rest captured)
+    must give the streaming run's labels bit for bit, its fg and multiclass
+    masks equal, its writer files byte-equal; a third, from the upload to
+    the dispatch's end, runs under ``torch.cuda.set_sync_debug_mode("error")``.
+    Then steady overall fps in turns (streaming, fused, fused, streaming),
+    and one profiled run of each path: device busy share and the kernels'
+    launches. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset, merge
+    from stemseg_tpu_torch.models import build_model
+    from stemseg_tpu_torch.ops import launch_counts, lsap, reset_launch_counts
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    cfg = merge(load_preset(preset), {"clustering": {"min_seediness_prob": 0.05}})
+    model = build_random_model(cfg, frames, MAIN_SEED)
+    if bf16:
+        weights = model.state_dict()
+        model = build_model(cfg, dtype=torch.bfloat16)
+        model.load_state_dict(weights)
+        del weights
+    tgs = {name: make_track_generator(cfg, dataset, model, os.path.join(out_root, f"{tag}_{name}"),
+                                      resize_embeddings, use_fused=name == "fused")
+           for name in ("streaming", "fused")}
+    kept = {name: keep_outputs(tg) for name, tg in tgs.items()}
+    seq = Sequence(seq_id, len(frames), frames.shape[1:3])
+    n_windows = len(tgs["fused"]._schedule(len(frames), frames.shape[1:3])[0])
+
+    def one(name, out_dir=None):
+        tg = tgs[name]
+        if out_dir is not None:
+            tg.output_generator = make_writer(dataset, out_dir, resize_embeddings,
+                                              device="cuda")
+        Timer.reset()
+        result = tg._process_loaded(seq, frames, frames.shape[1:3], tg.max_tracks)
+        fps = len(frames) / Timer.get_durations_sum()
+        if out_dir is not None:
+            tg.output_generator.save()
+        return result, fps
+
+    reset_launch_counts()
+    lsap.reset_launch_counts()
+    one("fused")
+    first = dict(launch_counts, **lsap.launch_counts)
+    expect = fused_first_run_launches(n_windows)
+    if first["cluster_points_tiled"] + first["cluster_points_single"] != expect \
+            or first["lsa_masked"] != expect or first["cluster_points_reference"] \
+            or first["lsa_masked_reference"]:
+        raise AssertionError(f"path {tag} fused, first run: launches {first}, expected {expect} "
+                             f"of a clustering kernel and of lsa_masked")
+    s_res, _ = one("streaming", os.path.join(out_root, f"{tag}_files_streaming"))
+    f_res, _ = one("fused", os.path.join(out_root, f"{tag}_files_fused"))
+    if s_res[3] is None or f_res[3] is not None:
+        raise AssertionError(f"path {tag}: the paths were not the ones asked for")
+    labels_equal = np.array_equal(s_res[0], f_res[0])
+    fg_equal = np.array_equal(kept["streaming"]["fg"], kept["fused"]["fg"])
+    s_mc, f_mc = kept["streaming"]["mc"], kept["fused"]["mc"]
+    mc_equal = (s_mc is None and f_mc is None) or np.array_equal(s_mc, f_mc)
+    files = [tree_bytes(os.path.join(out_root, f"{tag}_files_{n}")) for n in ("streaming", "fused")]
+    files_equal = files[0] == files[1] and len(files[0]) > 0
+    agree = float((s_res[0] == f_res[0]).mean())
+    log(f"  path {tag}: fused against streaming, labels {tuple(f_res[0].shape)} bit-identical "
+        f"{labels_equal} (agreement {agree:.6f}, {len(f_res[1]) - 1} tracks), fg masks equal "
+        f"{fg_equal}, multiclass equal {mc_equal}, {len(files[0])} writer files byte-equal "
+        f"{files_equal}; fused first run launches {first}")
+    if not (labels_equal and fg_equal and mc_equal and files_equal):
+        raise AssertionError(f"path {tag}: the fused path differs from the streaming path")
+
+    fused = tgs["fused"]
+    windows, resize = fused._schedule(len(frames), frames.shape[1:3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fused.fused.run(frames, windows, seediness_fg_threshold=fused.seediness_thresh,
+                              semseg_output_type=fused.semseg_output_type, resize_hw=resize,
+                              device_outputs=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not np.array_equal(out[0][:len(frames)].int().cpu().numpy(), s_res[0]):
+        raise AssertionError(f"path {tag}: the sync-checked fused run's labels differ")
+    log(f"  path {tag}: fused run from upload to dispatch under set_sync_debug_mode('error'): "
+        "no host sync")
+
+    fps = {"streaming": [], "fused": []}
+    for name in ("streaming", "fused", "fused", "streaming"):
+        fps[name].append(one(name)[1])
+    log(f"  path {tag} steady overall fps in turns ({smi}): streaming {fps['streaming'][0]:.3f}, "
+        f"fused {fps['fused'][0]:.3f}, fused {fps['fused'][1]:.3f}, streaming "
+        f"{fps['streaming'][1]:.3f}; fused / streaming "
+        f"{sum(fps['fused']) / sum(fps['streaming']):.3f}")
+    prof = {}
+    for name in ("streaming", "fused"):
+        busy, counts, wall_ms = profile_run(tgs[name], frames, seq_id)
+        launches = {k: sum(c for n, c in counts.items() if k in n)
+                    for k in ("cluster_kernel", "lsa_kernel")}
+        prof[name] = {"busy": busy, "launches": launches, "wall_ms": wall_ms}
+        log(f"  path {tag} {name} profiled, the CLI's timed phases: wall {wall_ms:.3f} ms, "
+            f"device busy {busy:.3f} of the wall; clustering kernels "
+            f"{launches['cluster_kernel']}, lsap kernel {launches['lsa_kernel']}; "
+            f"{sum(counts.values())} device items")
+        if bf16:  # as phase 16 read it: the writer in the wall
+            busy_w, _, wall_w = profile_run(tgs[name], frames, seq_id, writer=True)
+            prof[name]["busy_with_writer"] = busy_w
+            log(f"  path {tag} {name} profiled with the writer: wall {wall_w:.3f} ms, device "
+                f"busy {busy_w:.3f} of the wall")
+    if prof["fused"]["launches"] != {"cluster_kernel": n_windows, "lsa_kernel": n_windows}:
+        raise AssertionError(f"path {tag}: the profiled fused run launched "
+                             f"{prof['fused']['launches']}, expected {n_windows} of each")
+    del tgs, kept, model, fused, out
+    torch.cuda.empty_cache()
+    return {"fps": fps, "profile": prof, "windows": n_windows, "first_launches": first}
+
+
+# DAVIS 2017 val (davischallenge.org, DAVIS-2017-trainval-480p, ImageSets/2017/
+# val.txt): its 30 sequences in the dataset's order and their lengths, 1,999
+# frames of 480x854
+DAVIS17_VAL_LENGTHS = {
+    "bike-packing": 69, "blackswan": 50, "bmx-trees": 80, "breakdance": 84, "camel": 90,
+    "car-roundabout": 75, "car-shadow": 40, "cows": 104, "dance-twirl": 90, "dog": 60,
+    "dogs-jump": 66, "drift-chicane": 52, "drift-straight": 50, "goat": 90, "gold-fish": 78,
+    "horsejump-high": 50, "india": 81, "judo": 34, "kite-surf": 50, "lab-coat": 47,
+    "libby": 49, "loading": 50, "mbike-trick": 79, "motocross-jump": 40,
+    "paragliding-launch": 80, "parkour": 100, "pigs": 79, "scooter-black": 43,
+    "shooting": 40, "soapbox": 99}
+
+
+class NullWriter:
+    """A writer that keeps nothing: the dataset pass times the CLI's timed
+    phases, which leave the writer out."""
+
+    def process_sequence(self, *args, **kwargs):
+        pass
+
+
+def dataset_pass(smi):
+    """Phase 19: one pass of the CLI's ``TrackGenerator`` over DAVIS 2017
+    val's sequence lengths in the dataset's order, each sequence once on
+    each path, ``davis_2`` in bf16 (the model where host work weighs most)
+    on the 480x854 frames of one synthetic sequence (each sequence its first
+    ``n``). The paths take turns a sequence, the first of each pair
+    alternating, so that both meet the costs of a new batch shape; a
+    throwaway streaming run of the shortest length first takes the
+    process's own first-use costs. The fused pipeline is fresh: its device
+    states, warm-ups and captures are in the pass. Labels of every sequence
+    equal on both paths; overall fps of the CLI's timers over the pass, the
+    timed seconds of the sequences that made a fused state on each path,
+    peak device memory above the pass's start (the fused state stays
+    between its runs), and the fused pipeline's states and captures."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset, merge
+    from stemseg_tpu_torch.inference.main import TrackGenerator
+    from stemseg_tpu_torch.models import build_model
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    cfg = merge(load_preset("davis_2"), {"clustering": {"min_seediness_prob": 0.05}})
+    pool = synthetic_frames(max(DAVIS17_VAL_LENGTHS.values()), 480, 854, seed=MAIN_SEED)
+    weights = build_random_model(cfg, pool, MAIN_SEED).state_dict()
+    model = build_model(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(weights)
+    del weights
+    hw = pool.shape[1:3]
+
+    def new_tg(fused):
+        return TrackGenerator(cfg, "davis", model, NullWriter(), max_tracks_of(cfg, "davis"),
+                              use_fused=fused)
+
+    n_warm = min(DAVIS17_VAL_LENGTHS.values())
+    new_tg(False)._process_loaded(Sequence("warm-up", n_warm, hw), pool[:n_warm], hw, 1)
+    tgs = {"streaming": new_tg(False), "fused": new_tg(True)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    timed = {name: [] for name in tgs}
+    hashes = {name: [] for name in tgs}
+    peak = {name: 0 for name in tgs}
+    made = []  # sequences that made a fused state
+    for i, (seq_id, n) in enumerate(DAVIS17_VAL_LENGTHS.items()):
+        for name in ("streaming", "fused")[::1 if i % 2 == 0 else -1]:
+            tg = tgs[name]
+            states = tg.fused.states_made if tg.fused is not None else 0
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            Timer.reset()
+            labels = tg._process_loaded(Sequence(seq_id, n, hw), pool[:n], hw, tg.max_tracks)[0]
+            timed[name].append(Timer.get_durations_sum())
+            # the streaming path keeps nothing between sequences; the fused
+            # path keeps its state, so it counts from the pass's start
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated()
+                             - (before if tg.fused is None else base))
+            if tg.fused is not None and tg.fused.states_made > states:
+                made.append(i)
+            labels = labels.cpu().numpy() if torch.is_tensor(labels) else labels
+            hashes[name].append(hashlib.sha1(labels.astype(np.int32).tobytes()).hexdigest())
+    n_total = sum(DAVIS17_VAL_LENGTHS.values())
+    fps = {name: n_total / sum(t) for name, t in timed.items()}
+    pipe = tgs["fused"].fused
+    for name in tgs:
+        log(f"  DAVIS 2017 val pass ({len(DAVIS17_VAL_LENGTHS)} sequences, {n_total} frames of "
+            f"480x854, bf16, {smi}), {name}: overall fps {fps[name]:.3f}; the {len(made)} "
+            f"sequences that made a fused state "
+            f"{sum(timed[name][i] for i in made):.3f} s timed (the first "
+            f"{timed[name][0]:.3f}), the other {len(timed[name]) - len(made)} "
+            f"{sum(t for i, t in enumerate(timed[name]) if i not in made):.3f} s; peak device "
+            f"memory {peak[name] / 2 ** 30:.2f} GiB above the pass's start "
+            f"({base / 2 ** 30:.2f} GiB)")
+    same = [a == b for a, b in zip(hashes["streaming"], hashes["fused"])]
+    log(f"  DAVIS 2017 val pass: fused / streaming overall fps "
+        f"{fps['fused'] / fps['streaming']:.3f}; {pipe.states_made} fused states made (at "
+        f"sequences {made}), {pipe.captures} graphs captured, buffers for "
+        f"{pipe._state.l_cap} frames and {pipe._state.w_cap} windows; labels equal on "
+        f"{sum(same)} of {len(same)} sequences")
+    if not all(same):
+        raise AssertionError(f"DAVIS 2017 val pass: labels differ on "
+                             f"{[s for s, ok in zip(DAVIS17_VAL_LENGTHS, same) if not ok]}")
+    del tgs, pipe, model
+    torch.cuda.empty_cache()
+
+
+def fused_phase(out_root, smi):
+    """Phase 19: the lsap kernel, the clustering kernels replayed from a
+    graph, the fused path against the streaming path on A, C, D, C′ and A
+    in bf16, and a pass over DAVIS 2017 val's sequence lengths on both.
+    Returns (the lsap kernel's row, the paths' numbers)."""
+    from stemseg_tpu_torch.ops import cluster as ops
+
+    lsap_row = check_lsap()
+    check_graph_replays(ops)
+    frames_a = synthetic_frames(26, 480, 854, seed=MAIN_SEED)
+    frames_c = synthetic_frames(20, 720, 1280, seed=MAIN_SEED)
+    paths = {
+        "A": fused_path("A", "davis_2", "davis", frames_a, "A", out_root, smi),
+        "C": fused_path("C", "youtube_vis", "ytvis", frames_c, "C", out_root, smi),
+        "D": fused_path("D", "kitti_mots_2", "kittimots",
+                        synthetic_frames(16, 375, 1242, seed=MAIN_SEED), "0002", out_root, smi),
+        "C'": fused_path("C'", "youtube_vis", "ytvis", frames_c[:8], "C2", out_root, smi,
+                         resize_embeddings=True),
+        "A bf16": fused_path("A_bf16", "davis_2", "davis", frames_a, "A", out_root, smi,
+                             bf16=True),
+    }
+    dataset_pass(smi)
+    return lsap_row, paths
 
 
 def main():
@@ -2283,16 +2911,29 @@ def main():
         log("== phase 18: the inference CLI on path T's weights as a JAX .ckpt "
             "(--profile_clustering --save_vis --profile) against its .pth")
         t_phase = time.perf_counter()
-        launches_cli = cli_rest_phase(out_root, smi)
+        launches_cli, launches_cli_pth = cli_rest_phase(out_root, smi)
         log(f"  phase 18: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 19: the fused path (FusedSequencePipeline) against the streaming path, "
+            "the lsap kernel, the clustering kernels replayed from a CUDA graph")
+        t_phase = time.perf_counter()
+        lsap_row, fused = fused_phase(out_root, smi)
+        log(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
+    # the fused runs (R's and the .pth's CLI runs, phase 19's paths) replay
+    # their kernels from CUDA graphs: the profiler counts their launches
     launches_by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d,
-                        "C'": launches_c2, "T": launches_t, "R": launches_r,
+                        "C'": launches_c2, "T": launches_t, "R (profiled)": launches_r,
                         "A bf16": launches_a16, "C bf16": launches_c16, "T bf16": launches_t16,
-                        "CLI .ckpt": launches_cli}
-    launches = {name: sum(run[name] for run in launches_by_path.values()) for name in replaces}
+                        "CLI .ckpt": launches_cli, "CLI .pth (profiled)": launches_cli_pth}
+    for path, numbers in fused.items():  # every window of these goes to the tiled kernel
+        launches_by_path[f"{path} fused (profiled)"] = {
+            "cluster_points_single": 0,
+            "cluster_points_tiled": numbers["profile"]["fused"]["launches"]["cluster_kernel"],
+            "lsa_masked": numbers["profile"]["fused"]["launches"]["lsa_kernel"]}
+    launches = {name: sum(run.get(name, 0) for run in launches_by_path.values())
+                for name in (*replaces, "lsa_masked")}
     kernels["cluster_points_tiled"]["real_windows"] = {"C": real_c["kernel_ms_real_window"],
                                                        "D": real_d["kernel_ms_real_window"],
                                                        "C'": real_c2["kernel_ms_real_window"]}
@@ -2311,6 +2952,12 @@ def main():
          "launches_by_path": {path: run[name] for path, run in launches_by_path.items()},
          **{k: row[k] for k in keys if k in row}}
         for name, row in kernels.items()]}
+    table["kernels"].append({
+        "name": "lsa_masked", "route": "cuda", "source": "stemseg_tpu_torch/ops/csrc/lsap.cu",
+        "replaces": "stemseg_tpu/inference/lsap.py:121", "launches": launches["lsa_masked"],
+        "launches_by_path": {path: run["lsa_masked"] for path, run in launches_by_path.items()
+                             if "lsa_masked" in run},
+        **lsap_row})
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))
     print(smi)

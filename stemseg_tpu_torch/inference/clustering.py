@@ -89,16 +89,19 @@ def cluster_window(embeddings: torch.Tensor, bandwidths: torch.Tensor,
 
 
 def _cluster_window(embeddings, bandwidths, seediness, fg_mask, params: ClusterParams,
-                    label_start: int) -> ClusterResult:
+                    label_start) -> ClusterResult:
+    """``label_start``: an int, or a 0-d integer tensor on the device."""
     shape = fg_mask.shape
     e = embeddings.shape[-1]
     flat_emb = embeddings.reshape(-1, e).float()
     flat_bw = bandwidths.reshape(-1, bandwidths.shape[-1]).float()
     p = flat_emb.shape[0]
     if params.free_dim_stds:
-        free_bw = torch.tensor([1.0 / (s * s) for s in params.free_dim_stds],
-                               dtype=torch.float32, device=flat_bw.device)
-        flat_bw = torch.cat([flat_bw, free_bw.expand(p, -1)], dim=-1)
+        # filled on the device: no host-to-device copy, so a CUDA graph can
+        # hold the call
+        free_bw = [torch.full((p, 1), 1.0 / (s * s), dtype=torch.float32, device=flat_bw.device)
+                   for s in params.free_dim_stds]
+        flat_bw = torch.cat([flat_bw] + free_bw, dim=-1)
 
     labels, meta = cluster_points(
         flat_emb, flat_bw, seediness.reshape(-1).float(), fg_mask.reshape(-1).bool(),

@@ -70,6 +70,12 @@ def derive_masks(mean: torch.Tensor, *, has_semseg: bool, semseg_output_type: st
     return torch.sigmoid(fg_logits) > 0.5, multiclass
 
 
+def upscale_window(x: torch.Tensor) -> torch.Tensor:
+    """``[T, h, w, C]`` -> ``[T, 4h, 4w, C]``, trilinear (the full-scale
+    clustering's inputs)."""
+    return upsample_trilinear(x.permute(3, 0, 1, 2)[None], (1.0, 4.0, 4.0))[0].permute(1, 2, 3, 0)
+
+
 class InferenceEngine:
     def __init__(self, cfg: Config, model: STEmSegModel,
                  semseg_resize_scale: float = 1.0):
@@ -85,6 +91,12 @@ class InferenceEngine:
         self.embedding_size = cfg.model.embeddings.embedding_size
         self.variance_channels = self.embedding_size - get_nb_free_dims(
             cfg.model.embedding_dim_mode)
+        # made once: a tensor built from a list is a blocking host-to-device
+        # copy, which a CUDA graph capture refuses
+        self._mean = torch.tensor(cfg.input.image_mean, dtype=torch.float32,
+                                  device=self.device).view(1, 3, 1, 1)
+        self._std = torch.tensor(cfg.input.image_std, dtype=torch.float32,
+                                 device=self.device).view(1, 3, 1, 1)
 
     def preprocess(self, raw: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
         """uint8 ``[K, H0, W0, 3]`` (on the device) -> normalised, /32-padded
@@ -93,11 +105,9 @@ class InferenceEngine:
         x = raw.permute(0, 3, 1, 2).float()
         x = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                           align_corners=False, antialias=False)
-        mean = torch.tensor(icfg.image_mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(icfg.image_std, dtype=torch.float32, device=x.device)
         if icfg.normalize_to_unit_scale:
             x = x / 255.0
-        x = (x - mean.view(1, 3, 1, 1)) / std.view(1, 3, 1, 1)
+        x = (x - self._mean) / self._std
         if not icfg.bgr_input:
             x = x.flip(1)
         ph, pw = pad_to_multiple(*out_hw)

@@ -2,13 +2,21 @@
 --dataset {davis,ytvis,kittimots} [--resize_embeddings] [--bf16]
 [--profile_clustering] [--profile DIR] [--save_vis] [--device cuda]``.
 
-Per sequence: frame loading -> sliding-window engine (backbone + 3D heads)
--> per-window clustering + cross-window chaining -> the dataset's writer
-(DAVIS PNGs, YT-VIS ``results.json``, KITTI-MOTS txt), with the reference's
-fps report (model, clustering + postprocessing, overall). Frame I/O and
-output writing stay out of the timers; each timed phase ends in a device
-synchronise, so the report holds device time. After the last sequence the
-writer's ``save()`` runs (the YT-VIS json and zip, the KITTI-MOTS NMS).
+Per sequence: frame loading (the next sequence's frames are read while
+the current one runs) -> inference -> the dataset's writer (DAVIS PNGs,
+YT-VIS ``results.json``, KITTI-MOTS txt), with the reference's fps report
+(model, clustering + postprocessing, overall). A sequence of at least
+``num_frames`` frames takes the fused path (``fused_pipeline``: backbone,
+heads, clustering and the cross-window association on the device, one
+fetch at the end, its launches replayed from CUDA graphs), and its whole
+run is logged under the "inference" timer, so only the overall fps
+compares with the streaming path; a shorter sequence, and every sequence
+under ``--profile_clustering``, takes the streaming path (sliding-window
+engine, then per-window clustering + cross-window chaining with the
+association on the host). Frame I/O and output writing stay out of the
+timers; each timed phase ends in a device synchronise, so the report holds
+device time. After the last sequence the writer's ``save()`` runs (the
+YT-VIS json and zip, the KITTI-MOTS NMS).
 
 ``--resize_embeddings`` (or a config trained with ``loss_at_full_res``)
 clusters at the network input scale: each window's semseg logits, and the
@@ -18,7 +26,8 @@ upscaled 4x trilinearly first.
 ``--bf16`` runs the model in bfloat16 with float32 parameters; the frames
 are preprocessed, the windows averaged and clustered in float32.
 ``--profile_clustering`` times each window's clustering between two device
-synchronisations and reports the durations by point count;
+synchronisations and reports the durations by point count (on the
+streaming path, which it forces);
 ``--profile DIR`` writes a ``torch.profiler`` chrome trace of the whole run
 to ``DIR/trace.json``; ``--save_vis`` has the DAVIS writer also write each
 frame with its tracks overlaid (``vis/<seq>/<t>.jpg``; the other writers
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -96,26 +106,29 @@ def load_model(cfg: Config, model_path: str, device="cuda",
 
 
 class TrackGenerator:
-    """Per-sequence orchestration over the streaming engine and the online
-    chainer."""
+    """Per-sequence orchestration over the fused path, or the streaming
+    engine and the online chainer."""
 
     def __init__(self, cfg: Config, dataset: str, model, output_generator,
                  max_tracks: int, seediness_thresh: float = 0.25,
                  frame_overlap: int = -1, resize_embeddings: bool = False,
-                 profile_clustering: bool = False):
+                 profile_clustering: bool = False, use_fused: bool = True):
         """:param model: an ``STEmSegModel`` on its device; its compute dtype
             is the run's
         :param profile_clustering: keep a ``ClusterTimeLog`` of the windows'
-            clustering (a device synchronisation before and after each)"""
+            clustering (a device synchronisation before and after each); the
+            fused path has no window boundary to time, so this forces the
+            streaming path
+        :param use_fused: run sequences of at least ``num_frames`` frames
+            through ``FusedSequencePipeline``"""
         from stemseg_tpu_torch.inference.chainer import OnlineChainer
         from stemseg_tpu_torch.inference.clustering import (
             ClusterParams,
             ClusterTimeLog,
             cluster_window,
         )
-        from stemseg_tpu_torch.inference.engine import InferenceEngine
+        from stemseg_tpu_torch.inference.engine import InferenceEngine, upscale_window
         from stemseg_tpu_torch.models.embedding_utils import get_nb_free_dims
-        from stemseg_tpu_torch.models.layers import upsample_trilinear
 
         overlaps = {"davis": cfg.data.davis.inference_frame_overlap,
                     "ytvis": cfg.data.youtube_vis.inference_frame_overlap,
@@ -149,24 +162,27 @@ class TrackGenerator:
             secondary_assignment=ccfg.secondary_assignment)
         self.cluster_time_log = ClusterTimeLog() if profile_clustering else None
 
-        def upscale(x):  # [T, h, w, C] -> [T, 4h, 4w, C]
-            return upsample_trilinear(x.permute(3, 0, 1, 2)[None],
-                                      (1.0, 4.0, 4.0))[0].permute(1, 2, 3, 0)
-
         def cluster_fn(emb, bw, seed, fg_mask, label_start):
             if self.cluster_full_scale:
-                emb, bw, seed = upscale(emb), upscale(bw), upscale(seed[..., None])[..., 0]
+                emb, bw = upscale_window(emb), upscale_window(bw)
+                seed = upscale_window(seed[..., None])[..., 0]
             return cluster_window(emb, bw, seed, fg_mask, self.cluster_params,
                                   label_start, time_log=self.cluster_time_log)
 
         self.chainer = OnlineChainer(cluster_fn, max_instances=ccfg.max_instances)
+        self.fused = None
+        if use_fused and not profile_clustering:
+            from stemseg_tpu_torch.inference.fused_pipeline import FusedSequencePipeline
+
+            self.fused = FusedSequencePipeline(self.engine, self.cluster_params,
+                                               cluster_full_scale=self.cluster_full_scale)
         self.total_frames_processed = 0
 
-    @Timer.exclude_duration("inference", "postprocessing")
-    def _load_frames(self, sequence):
-        """Raw uint8 BGR frames, read by a thread pool over cv2."""
+    def _read_frames(self, sequence):
+        """Raw uint8 BGR frames, read by a thread pool over cv2 (``start``
+        reads the next sequence's on its prefetch thread, outside the
+        timers)."""
         import cv2
-        from concurrent.futures import ThreadPoolExecutor
 
         def read(path):
             im = cv2.imread(path, cv2.IMREAD_COLOR)
@@ -178,22 +194,37 @@ class TrackGenerator:
             images = list(pool.map(read, sequence.frame_paths()))
         return np.stack(images), images[0].shape[:2]
 
-    @Timer.log_duration("inference")
-    def do_inference(self, frames: np.ndarray, image_hw):
+    def _schedule(self, n_frames: int, image_hw):
+        """(window schedule, network input dims before the /32 padding)."""
         from stemseg_tpu_torch.inference.windows import get_subsequence_frames
         from stemseg_tpu_torch.structures.geometry import compute_resize_params
 
         h0, w0 = image_hw
         new_w, new_h, _ = compute_resize_params(
             (w0, h0), self.cfg.input.min_dim, self.cfg.input.max_dim)
-        windows = get_subsequence_frames(
-            frames.shape[0], self.cfg.input.num_frames, self.frame_overlap)
+        windows = get_subsequence_frames(n_frames, self.cfg.input.num_frames,
+                                         self.frame_overlap)
+        return windows, (new_h, new_w)
+
+    @Timer.log_duration("inference")
+    def do_inference(self, frames: np.ndarray, image_hw):
+        windows, resize_hw = self._schedule(frames.shape[0], image_hw)
         out = self.engine.infer_sequence(
-            frames, windows, resize_hw=(new_h, new_w),
+            frames, windows, resize_hw=resize_hw,
             seediness_fg_threshold=self.seediness_thresh,
             semseg_output_type=self.semseg_output_type)
         synchronize(self.device)
         return out
+
+    @Timer.log_duration("inference")
+    def do_fused(self, frames: np.ndarray, image_hw):
+        """The fused path: the whole run (clustering and association
+        included) under the "inference" timer. The multiclass masks stay on
+        the device for the writer."""
+        windows, resize_hw = self._schedule(frames.shape[0], image_hw)
+        return self.fused.run(frames, windows, seediness_fg_threshold=self.seediness_thresh,
+                              semseg_output_type=self.semseg_output_type,
+                              resize_hw=resize_hw, fetch_multiclass=False)
 
     @Timer.log_duration("postprocessing")
     def do_clustering(self, out):
@@ -202,20 +233,22 @@ class TrackGenerator:
         synchronize(self.device)
         return result
 
-    def process_sequence(self, sequence, max_tracks: int):
-        frames, image_hw = self._load_frames(sequence)
-        return self._process_loaded(sequence, frames, image_hw, max_tracks)
-
     def _process_loaded(self, sequence, frames: np.ndarray, image_hw, max_tracks: int):
         """One sequence of raw uint8 ``[T, H, W, 3]`` BGR frames through the
-        engine, the chainer and the writer (with the multiclass masks on the
-        device, or None). Returns the chainer's output: (labels, counts,
-        lifetimes, per-window ClusterResults)."""
-        out = self.do_inference(frames, image_hw)
-        result = self.do_clustering(out)
-        labels, counts, lifetimes, _ = result
+        fused path (at least ``num_frames`` frames) or the engine and the
+        chainer, then the writer (with the multiclass masks on the device,
+        or None). Returns (labels, counts, lifetimes, per-window
+        ClusterResults of the streaming path or None for the fused one)."""
+        if self.fused is not None and frames.shape[0] >= self.cfg.input.num_frames:
+            labels, counts, lifetimes, _, multiclass = self.do_fused(frames, image_hw)
+            result = (labels, counts, lifetimes, None)
+        else:
+            out = self.do_inference(frames, image_hw)
+            result = self.do_clustering(out)
+            labels, counts, lifetimes, _ = result
+            multiclass = out["multiclass_masks"]
         self.output_generator.process_sequence(
-            sequence, labels, counts, lifetimes, out["multiclass_masks"], mask_scale=4,
+            sequence, labels, counts, lifetimes, multiclass, mask_scale=4,
             max_tracks=max_tracks, min_dim=self.cfg.input.min_dim,
             max_dim=self.cfg.input.max_dim)
         self.total_frames_processed += len(frames)
@@ -224,9 +257,15 @@ class TrackGenerator:
     def start(self, sequences, seqs_to_process: Optional[List[str]] = None):
         todo = [s for s in sequences
                 if not seqs_to_process or str(s.id) in seqs_to_process]
-        for i, sequence in enumerate(todo):
-            print(f"Performing inference for sequence {i + 1}/{len(todo)}")
-            self.process_sequence(sequence, self.max_tracks)
+        # one thread reads the next sequence's frames while this one runs
+        with ThreadPoolExecutor(max_workers=1) as prefetcher:
+            pending = prefetcher.submit(self._read_frames, todo[0]) if todo else None
+            for i, sequence in enumerate(todo):
+                print(f"Performing inference for sequence {i + 1}/{len(todo)}")
+                frames, image_hw = pending.result()
+                if i + 1 < len(todo):
+                    pending = prefetcher.submit(self._read_frames, todo[i + 1])
+                self._process_loaded(sequence, frames, image_hw, self.max_tracks)
         self.print_fps_report()
 
     def fps_report(self) -> List[str]:

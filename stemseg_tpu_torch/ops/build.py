@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_OPS_DIR)), "build",
                          "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("cluster",)
+SOURCES = ("cluster", "lsap")
 
 
 @dataclass

@@ -24,8 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import itertools
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -132,9 +131,9 @@ def on_chip_capacity(e_dims: int, resident: bool, n_sms: int, smem_per_block: in
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SINGLE_ARGS = (_PTR,) * 7 + (_INT,) * 3 + (_FLOAT,) * 3 + (_INT, ctypes.c_ulonglong, _PTR)
+_SINGLE_ARGS = (_PTR,) * 7 + (_INT,) * 3 + (_FLOAT,) * 3 + (_INT, _PTR)
 _TILED_ARGS = (_PTR,) * 8 + _SINGLE_ARGS[7:]
-_nonces = itertools.count(1)  # tags the exchange records of each launch
+COUNTER_BYTES = 16  # the workspace's launch counter (csrc/cluster_exchange.cuh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,16 +164,37 @@ def library_capacity(e_dims: int, resident: bool, n_sms: int, smem_per_block: in
         e_dims, int(resident), n_sms, smem_per_block)
 
 
-@functools.lru_cache(maxsize=None)
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
 def _records(index: int, stream: int) -> torch.Tensor:
     """Workspace of the kernels' record exchange on CUDA device ``index``
-    and stream ``stream``: a record of 16 (E + 1) bytes per block and
-    iteration parity, and two decisions, at E = 8. Zeroed once and kept for
-    the process, so that it holds nothing but zeros and the words these
-    kernels wrote, as their exchange requires (csrc/cluster_exchange.cuh)."""
-    sms = device_limits(index)[0]
-    return torch.zeros((2 * sms + 2) * 16 * (MAX_E_DIMS + 1), dtype=torch.uint8,
-                       device=torch.device("cuda", index))
+    and stream ``stream``: the launch counter, then a record of 16 (E + 1)
+    bytes per block and iteration parity, and two decisions, at E = 8.
+    Zeroed once and kept for the process, so that it holds nothing but zeros
+    and the words these kernels wrote, as their exchange requires
+    (csrc/cluster_exchange.cuh). A launch captured into a CUDA graph keeps
+    the workspace of its capture stream; a workspace allocated during a
+    capture would come from the graph's pool and be zeroed at every replay,
+    so ``prepare_records`` must have made it before."""
+    key = (index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the clustering kernels' workspace of the capture stream must "
+                               "exist before the capture (ops.cluster.prepare_records)")
+        sms = device_limits(index)[0]
+        ws = torch.zeros(COUNTER_BYTES + (2 * sms + 2) * 16 * (MAX_E_DIMS + 1),
+                         dtype=torch.uint8, device=torch.device("cuda", index))
+        _workspaces[key] = ws
+    return ws
+
+
+def prepare_records(stream: torch.cuda.Stream) -> None:
+    """Allocates the workspace of ``stream`` (on its device) now, outside
+    any capture: call it before capturing the clustering on ``stream``."""
+    with torch.cuda.stream(stream):
+        _records(stream.device.index, stream.cuda_stream)
 
 
 def _launch(resident: bool, emb, bw, seed, fg, *, e_dims, max_instances, primary,
@@ -211,7 +231,7 @@ def _launch(resident: bool, emb, bw, seed, fg, *, e_dims, max_instances, primary
         fn = _c_function("stemseg_cluster_single" if resident else "stemseg_cluster_tiled",
                          _SINGLE_ARGS if resident else _TILED_ARGS)
         err = fn(*ptrs, p, e_dims, max_instances, primary, secondary, min_seediness,
-                 int(bool(reference_secondary)), next(_nonces), stream)
+                 int(bool(reference_secondary)), stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
     return labels, meta
@@ -226,10 +246,8 @@ def sync_floor(n_points: int, iterations: int) -> None:
     index = torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
     out = torch.empty(1, dtype=torch.int64, device=index)
-    err = _c_function("stemseg_cluster_sync_floor", (_PTR, _PTR, _INT, _INT,
-                                                     ctypes.c_ulonglong, _PTR))(
-        _records(index, stream).data_ptr(), out.data_ptr(), n_points, iterations,
-        next(_nonces), stream)
+    err = _c_function("stemseg_cluster_sync_floor", (_PTR, _PTR, _INT, _INT, _PTR))(
+        _records(index, stream).data_ptr(), out.data_ptr(), n_points, iterations, stream)
     if err != 0:
         raise RuntimeError(f"stemseg_cluster_sync_floor failed to launch: CUDA error {err}")
 

@@ -77,9 +77,9 @@ struct Args {
   const unsigned char* fg;    // [n] 0/1
   int* labels;                // [n] out: slot or -1
   float* meta;                // [32, 128] out, written whole by block 0
-  void* records;              // Record<E>: [2, gridDim.x] blocks', [2] decisions
+  void* records;              // launch counter, then Record<E>: [2, gridDim.x] blocks',
+                              // [2] decisions (cluster_exchange.cuh)
   unsigned char* state;       // kStreamOffChip: 2 x [n] u32 lists, [n] f32, [n] int8
-  unsigned long long nonce;
   int n;
   int per;                    // points per block (the last block may own fewer)
   int k_max;
@@ -193,7 +193,9 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_kernel(Args a) {
   const int per = a.per;
   const int start = blockIdx.x * per;
   const int n_local = max(0, min(per, a.n - start));
-  Record<E>* recs = static_cast<Record<E>*>(a.records);
+  unsigned long long* counter = static_cast<unsigned long long*>(a.records);
+  Record<E>* recs = exchange_records<E>(a.records);
+  const unsigned long long nonce = launch_nonce(counter);
 
   float* emb_s = nullptr;  // kResident: [E][per] (SoA: conflict-free)
   float* seed_s = nullptr;
@@ -302,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_kernel(Args a) {
     // the block's candidate for iteration `it`, then the exchange
     best = block_max(best, fx->red);
     if (tid == 0) fx->cnt[cur] = 0;  // read by all before block_max's barrier
-    const unsigned int tag = record_tag(a.nonce, it);
+    const unsigned int tag = record_tag(nonce, it);
     Record<E>* buf = recs + (size_t)(it & 1) * nb;
     Record<E>* decision = recs + (size_t)2 * nb + (it & 1);
     if (tid < 32) {
@@ -348,6 +350,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_kernel(Args a) {
 
   if (blockIdx.x == 0) {
     __syncthreads();
+    if (tid == 0) end_launch(counter, nonce);
     for (int q = tid; q < kPad * kMetaCols; q += nt) {
       const int r = q / kMetaCols, col = q - r * kMetaCols;
       float v = 0.0f;
@@ -366,10 +369,13 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_kernel(Args a) {
 // reduction, one record published per block, the exchange and the decode,
 // at E = 4, with no point work. `out` receives the last winning key.
 __global__ void __launch_bounds__(kThreads, 1)
-    sync_floor_kernel(Record<4>* recs, unsigned long long* out, int iterations,
-                      unsigned long long nonce) {
+    sync_floor_kernel(void* records, unsigned long long* out, int iterations) {
   __shared__ Fixed<4> fx;
   const int nb = gridDim.x;
+  unsigned long long* counter = static_cast<unsigned long long*>(records);
+  Record<4>* recs = exchange_records<4>(records);
+  const unsigned long long nonce = launch_nonce(counter);
+  __syncthreads();
   for (int it = 0; it < iterations; ++it) {
     unsigned long long best =
         ((unsigned long long)(threadIdx.x + it) << 32) | (0xFFFFFFFFu - blockIdx.x);
@@ -384,7 +390,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     exchange<4>(buf, recs + (size_t)2 * nb + (it & 1), nb, tag, &fx);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *out = fx.win.key;
+  if (blockIdx.x == 0) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      end_launch(counter, nonce);
+      *out = fx.win.key;
+    }
+  }
 }
 
 // Grid of one block per SM (fewer for small n), and the device's limits.
@@ -420,13 +432,25 @@ long long block_capacity(int e_dims, bool resident, int smem_optin) {
   return room <= 0 ? 0 : room / (long long)point_bytes(e_dims, resident);
 }
 
+// A cooperative launch through cudaLaunchKernelExC, which a stream capture
+// records as a cooperative kernel node; no call here synchronises.
 cudaError_t launch_cooperative(const void* kernel, int blocks, size_t smem, void** params,
                                cudaStream_t stream) {
   // a grid that cannot be co-resident is refused by the cooperative launch
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), params, smem, stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, kernel, params);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -468,8 +492,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 Args make_args(const void* emb, const void* bw, const void* seed, const void* fg,
                void* labels, void* meta, void* records, void* state, int n, int k_max,
-               float primary, float secondary, float min_seed, int reference_secondary,
-               unsigned long long nonce) {
+               float primary, float secondary, float min_seed, int reference_secondary) {
   Args a;
   a.emb = static_cast<const float*>(emb);
   a.bw = static_cast<const float*>(bw);
@@ -479,7 +502,6 @@ Args make_args(const void* emb, const void* bw, const void* seed, const void* fg
   a.meta = static_cast<float*>(meta);
   a.records = records;
   a.state = static_cast<unsigned char*>(state);
-  a.nonce = nonce;
   a.n = n;
   a.per = 0;
   a.k_max = k_max;
@@ -496,9 +518,10 @@ Args make_args(const void* emb, const void* bw, const void* seed, const void* fg
 using namespace stemseg;
 
 // Plain C interface for ctypes. Each returns a cudaError_t (0 = launched).
-// `records` holds (2 * (SM count) + 2) * 16 (E + 1) bytes, 16-byte aligned,
-// zeroed when allocated and written by nothing but these functions' kernels
-// (cluster_exchange.cuh); `nonce` differs between launches that reuse it.
+// `records` holds kCounterBytes + (2 * (SM count) + 2) * 16 (E + 1) bytes,
+// 16-byte aligned, zeroed when allocated and written by nothing but these
+// functions' kernels (cluster_exchange.cuh), which are launched on it one
+// after another (one stream, or one graph replayed on one stream).
 
 extern "C" int stemseg_cluster_limits(int* sms, int* smem_optin) {
   int dev = 0;
@@ -521,10 +544,10 @@ extern "C" long long stemseg_cluster_capacity(int e_dims, int resident, int sms,
 extern "C" int stemseg_cluster_single(
     const void* emb, const void* bw, const void* seed, const void* fg, void* labels,
     void* meta, void* records, int n, int e_dims, int k_max, float primary, float secondary,
-    float min_seed, int reference_secondary, unsigned long long nonce, void* stream_ptr) {
+    float min_seed, int reference_secondary, void* stream_ptr) {
   if (k_max < 1 || k_max > kPad || n < 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(emb, bw, seed, fg, labels, meta, records, nullptr, n, k_max,
-                           primary, secondary, min_seed, reference_secondary, nonce);
+                           primary, secondary, min_seed, reference_secondary);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return (int)[&]() -> cudaError_t { STEMSEG_DISPATCH_E(true) }();
 }
@@ -535,11 +558,10 @@ extern "C" int stemseg_cluster_single(
 extern "C" int stemseg_cluster_tiled(
     const void* emb, const void* bw, const void* seed, const void* fg, void* labels,
     void* meta, void* records, void* state, int n, int e_dims, int k_max, float primary,
-    float secondary, float min_seed, int reference_secondary, unsigned long long nonce,
-    void* stream_ptr) {
+    float secondary, float min_seed, int reference_secondary, void* stream_ptr) {
   if (k_max < 1 || k_max > kPad || n < 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(emb, bw, seed, fg, labels, meta, records, state, n, k_max, primary,
-                           secondary, min_seed, reference_secondary, nonce);
+                           secondary, min_seed, reference_secondary);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   return (int)[&]() -> cudaError_t { STEMSEG_DISPATCH_E(false) }();
 }
@@ -547,13 +569,13 @@ extern "C" int stemseg_cluster_tiled(
 // The sync floor on the clustering kernels' grid for n points: `iterations`
 // exchanges at E = 4.
 extern "C" int stemseg_cluster_sync_floor(void* records, void* out, int n, int iterations,
-                                          unsigned long long nonce, void* stream_ptr) {
+                                          void* stream_ptr) {
   int blocks = 0, per = 0, smem_optin = 0;
   cudaError_t err = plan(n, &blocks, &per, &smem_optin);
   if (err != cudaSuccess) return (int)err;
-  Record<4>* r = static_cast<Record<4>*>(records);
+  if (iterations < 1) return (int)cudaErrorInvalidValue;
   unsigned long long* o = static_cast<unsigned long long*>(out);
-  void* params[] = {&r, &o, &iterations, &nonce};
+  void* params[] = {&records, &o, &iterations};
   return (int)launch_cooperative(reinterpret_cast<const void*>(&sync_floor_kernel), blocks, 0,
                                  params, static_cast<cudaStream_t>(stream_ptr));
 }

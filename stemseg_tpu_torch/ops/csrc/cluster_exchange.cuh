@@ -16,9 +16,18 @@
 // no fence, no flag and no per-launch zeroing. This relies on the records'
 // workspace holding nothing but zeros and words these kernels wrote: the
 // caller zeroes it once when it allocates it and then passes it to these
-// kernels alone. Zeros never match a tag, and words of earlier iterations
-// or launches never match either (nonces are unique per launch until they
-// wrap at 2^26 launches, and every launch rewrites the records it reads).
+// kernels alone, one launch after another. Zeros never match a tag, and
+// words of earlier iterations or launches never match either (nonces are
+// unique per launch until they wrap at 2^26 launches, and every launch
+// rewrites the records it reads).
+//
+// The nonce lives on the device, so that a launch replayed from a CUDA graph
+// gets a new one as a launch queued from the host does: the workspace starts
+// with a 64-bit launch counter (kCounterBytes, then the records). Every
+// thread reads it at the start of the launch and takes counter + 1; block 0
+// writes that value back at the end of the launch. By then every block has
+// read the counter: each read it before publishing its first record, and
+// block 0 has read every block's record of the last iteration.
 //   vector 0: key low, key high;  vector 1 + e: centre[e], bandwidth[e].
 //
 // The exchange has two hops. Block 0 is the leader: it polls every block's
@@ -41,6 +50,7 @@ constexpr int kThreads = 1024;      // threads of every block
 constexpr int kMaxReadWarps = 8;    // records read one per thread: <= 256 blocks
 constexpr int kFixedSmem = 4096;    // bytes of Fixed<E> reserved, E <= 8
 constexpr int kPad = 32;            // meta rows
+constexpr int kCounterBytes = 16;   // the launch counter, before the records
 
 template <int E>
 struct alignas(16) Record {
@@ -88,6 +98,24 @@ __device__ __forceinline__ unsigned int key_index(unsigned long long key) {
 
 __device__ __forceinline__ float key_score(unsigned long long key) {
   return from_ordered((unsigned int)(key >> 32));
+}
+
+// The records of a workspace (after its launch counter).
+template <int E>
+__device__ __forceinline__ Record<E>* exchange_records(void* workspace) {
+  return reinterpret_cast<Record<E>*>(static_cast<unsigned char*>(workspace) + kCounterBytes);
+}
+
+// This launch's nonce: one more than the launches counted on the workspace.
+__device__ __forceinline__ unsigned long long launch_nonce(const unsigned long long* counter) {
+  unsigned long long c;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(c) : "l"(counter) : "memory");
+  return c + 1;
+}
+
+// Block 0, once every exchange of the launch is done: counts the launch.
+__device__ __forceinline__ void end_launch(unsigned long long* counter, unsigned long long nonce) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(counter), "l"(nonce) : "memory");
 }
 
 __device__ __forceinline__ unsigned int record_tag(unsigned long long nonce, int s) {

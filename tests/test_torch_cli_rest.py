@@ -158,20 +158,21 @@ def cli_runs(jax_ckpt, tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         for k, v in write_davis_dataset(root, synthetic_frames()).items():
             mp.setenv(k, v)
-        inner = TrackGenerator.do_clustering
+        inner = TrackGenerator._process_loaded
 
         for kind, flags in (("ckpt", ["--profile_clustering", "--save_vis",
                                       "--profile", str(root / "trace")]),
                             ("pth", [])):
             seen = {}
 
-            def do_clustering(self, out, _seen=seen):
-                result = inner(self, out)
+            def process_loaded(self, sequence, frames, image_hw, max_tracks, _seen=seen):
+                result = inner(self, sequence, frames, image_hw, max_tracks)
                 _seen.setdefault("labels", []).append(np.asarray(result[0]))
                 _seen["report"] = self.fps_report()
+                _seen["fused"] = result[3] is None  # no per-window results
                 return result
 
-            mp.setattr(TrackGenerator, "do_clustering", do_clustering)
+            mp.setattr(TrackGenerator, "_process_loaded", process_loaded)
             out_dir = root / ("out_" + kind)
             cli.main([jax_ckpt[3][kind], "-o", str(out_dir), "--dataset", "davis",
                       "-fo", str(OVERLAP), "-st", str(SEEDINESS_THRESH), "--device", "cpu",
@@ -191,6 +192,9 @@ def test_cli_on_a_jax_ckpt_gives_the_labels_of_the_pth(jax_ckpt, cli_runs):
     runs, _ = cli_runs
     (ckpt_seen, ckpt_out), (pth_seen, pth_out) = runs["ckpt"], runs["pth"]
     assert len(ckpt_seen["labels"]) == 1
+    # --profile_clustering keeps the CLI on the streaming path; with no flag
+    # it takes the fused one, whose labels are the streaming path's
+    assert not ckpt_seen["fused"] and pth_seen["fused"]
     np.testing.assert_array_equal(ckpt_seen["labels"][0], pth_seen["labels"][0])
     assert len(np.unique(ckpt_seen["labels"][0])) > 3
     for t in range(T):

@@ -122,7 +122,7 @@ def slices(tmp_path_factory):
                                 frame_overlap=OVERLAP, resize_embeddings=resize,
                                 use_fused=False)
         tg = TrackGenerator(cfg, dataset, model, writers[1], MAX_TRACKS,
-                            frame_overlap=OVERLAP, resize_embeddings=resize)
+                            frame_overlap=OVERLAP, resize_embeddings=resize, use_fused=False)
         jax_out = jtg.do_inference(frames, (H, W))
         out[case] = (jtg, tg, jax_out, jtg.do_clustering(jax_out), root)
     return frames, out
@@ -280,7 +280,8 @@ def test_cli_end_to_end_on_cpu(slices, case, tmp_path, monkeypatch):
     """``stemseg_tpu_torch.inference.main --dataset ytvis|kittimots`` on a
     synthetic dataset (PNG frames, dataset JSON and image root from the
     environment, ``config.yaml`` beside a ``.pth``): the same files as the
-    TrackGenerator and writer in memory."""
+    TrackGenerator and writer in memory (the CLI on its default fused path,
+    the TrackGenerator on the streaming path)."""
     import yaml
 
     from stemseg_tpu_torch.config import to_dict
