@@ -130,12 +130,38 @@ which raises on failure (the script then exits non-zero):
    launches, which the host counts do not see); last, one pass over DAVIS
    2017 val's 30 sequence lengths (1,999 frames of 480x854, each sequence
    once, ``davis_2`` in bf16) on each path: labels equal, overall fps, peak
-   memory, the fused pipeline's device states and captures.
+   memory, the fused pipeline's device states and captures;
+20. convert -> infer -> score at full width: three validation sets with
+   masks written in their datasets' layouts and frame sizes
+   (``write_eval_datasets``: DAVIS 2 sequences of 480x854, YT-VIS 2 of
+   720x1280, KITTI-MOTS one of 375x1242 with cars, a pedestrian and an
+   ignore region); their ground truth as results (DAVIS PNGs and KITTI
+   txt through the port's writers, YT-VIS ``results.json``) scored by
+   ``python -m stemseg_tpu_torch.eval.main``: every J, F, J&F, AP, AP50,
+   AP75, sMOTSA, MOTSA and MOTSP exactly 1.0, the CLI's line equal on two
+   runs; phase 18's JAX ``.ckpt`` of path T through
+   ``models.convert_checkpoint``, each tensor equal to T's ``.pth``; then
+   ``tools.eval_all`` on the card (``--device`` at its default) for DAVIS
+   (the converted ``.pth``), YT-VIS and KITTI-MOTS (random ``youtube_vis``
+   and ``kitti_mots_2`` models), each on the fused path, once profiled
+   (every window's clustering kernel, the tiled one, and lsap kernel
+   counted on the device) and once timed, with equal metrics and a
+   ``RESULTS.md``: inference and scoring seconds, scoring ms a frame, and
+   for DAVIS the scorer's (object, proposal, frame) triples, ms per
+   ``db_eval_boundary`` call and the DAVIS 2017 val scoring wall it
+   projects;
+21. the dilated decoder trunk: an ``EmbeddingDecoder`` with
+   ``trunk_type="squeeze_expand_dilated_decoder"`` at ``davis_2``'s widths
+   and the plain trunk's, on one 16-frame window of path A's FPN maps:
+   forward ms and peak memory in float32 and bf16; the three heads with
+   the dilated trunk at the tests' small size (8 and 16 frames) on the GPU
+   against the CPU: forward within 1e-3, input and parameter gradients
+   within a per-leaf relative L2 of 1e-3, TF32 off.
 
 Phases 4-18 run the streaming path (``use_fused=False``), so their layer
 splits stay comparable; the inference CLI in phases 14 and 18 runs its
 default, the fused path (``--profile_clustering`` the streaming one),
-whose launches the profiler counts.
+whose launches the profiler counts; so do phase 20's eval_all runs.
 Paths C, D and C′ print the fps report of their checked run and of a
 second, steady run, and the device time of each layer (CUDA events). The
 kernel's output on each path's first real window is held against the
@@ -237,6 +263,71 @@ def texture(rng, h, w):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def rle_str(mask):
+    from stemseg_tpu_torch.utils import rle
+
+    return rle.encode(mask)["counts"].decode("utf-8")
+
+
+def blob(h, w, cy, cx, ry, rx):
+    """A filled ellipse as an [h, w] uint8 mask."""
+    import cv2
+    import numpy as np
+
+    m = np.zeros((h, w), np.uint8)
+    cv2.ellipse(m, (int(round(cx)), int(round(cy))), (max(1, int(round(rx))),
+                max(1, int(round(ry)))), 0, 0, 360, 1, -1)
+    return m
+
+
+def paint(img, mask, colour):
+    img[mask > 0] = (img[mask > 0] * 0.4 + colour * 0.6).astype(img.dtype)
+
+
+def write_video_set(rng, base, ann, json_name, h, w, specs, sub="", separate=False):
+    """Sequences of textured JPEG frames of ``h x w`` (the camera pans 2 px a
+    frame) with moving ellipses, under ``base/sub/<seq id>/``, and their
+    project JSON with RLE masks as ``ann/json_name``. ``specs``: (seq id,
+    frames, {iid: category}, {iid: frames without it}). With ``separate``
+    each object's mask loses the pixels of the objects before it (in
+    ``specs``' order), so that no pixel belongs to two. Returns the JSON's
+    sequences."""
+    import cv2
+    import numpy as np
+
+    sequences = []
+    for seq_id, n_frames, cats, absent in specs:
+        os.makedirs(os.path.join(base, sub, seq_id))
+        bg = texture(rng, h, w + 2 * n_frames)  # the camera pans 2 px a frame
+        objs = {iid: (rng.uniform(0.3, 0.7) * h, rng.uniform(0.25, 0.75) * w,
+                      rng.uniform(0.08, 0.2) * h, rng.uniform(0.05, 0.12) * w,
+                      rng.uniform(-0.004, 0.004, 2) * (h, w), rng.randint(0, 256, 3))
+                for iid in cats}
+        paths, segmentations = [], []
+        for t in range(n_frames):
+            img = np.ascontiguousarray(bg[:, 2 * t:2 * t + w])
+            seg_t = {}
+            taken = np.zeros((h, w), np.uint8)
+            for iid, (cy, cx, ry, rx, v, col) in objs.items():
+                if t not in absent.get(iid, ()):
+                    m = blob(h, w, cy + v[0] * t, cx + v[1] * t, ry, rx)
+                    if separate:
+                        m &= 1 - taken
+                        taken |= m
+                    paint(img, m, col)
+                    seg_t[str(iid)] = rle_str(m)
+            paths.append(f"{seq_id}/{t:05d}.jpg")
+            cv2.imwrite(os.path.join(base, sub, paths[-1]), img)
+            segmentations.append(seg_t)
+        sequences.append({"id": seq_id, "height": h, "width": w, "image_paths": paths,
+                          "categories": {str(i): c for i, c in cats.items()},
+                          "segmentations": segmentations})
+    labels = {str(c): str(c) for s in specs for c in s[2].values()}
+    with open(os.path.join(ann, json_name), "w") as fh:
+        json.dump({"meta": {"category_labels": labels}, "sequences": sequences}, fh)
+    return sequences
+
+
 def write_training_datasets(root, seed=MAIN_SEED, shapes=None):
     """The six training datasets, each in its own on-disk layout (JPEG
     frames, the project JSON with RLE masks) at its frame size
@@ -260,25 +351,11 @@ def write_training_datasets(root, seed=MAIN_SEED, shapes=None):
     import cv2
     import numpy as np
 
-    from stemseg_tpu_torch.utils import rle
-
     shapes = dict(TRAIN_DATA_SHAPES, **(shapes or {}))
     rng = np.random.RandomState(seed)
     ann = os.path.join(root, "annotations")
     os.makedirs(ann)
     env = {"STEMSEG_JSON_ANNOTATIONS_DIR": ann}
-
-    def rle_str(mask):
-        return rle.encode(mask)["counts"].decode("utf-8")
-
-    def blob(h, w, cy, cx, ry, rx):
-        m = np.zeros((h, w), np.uint8)
-        cv2.ellipse(m, (int(round(cx)), int(round(cy))), (max(1, int(round(rx))),
-                    max(1, int(round(ry)))), 0, 0, 360, 1, -1)
-        return m
-
-    def paint(img, mask, colour):
-        img[mask > 0] = (img[mask > 0] * 0.4 + colour * 0.6).astype(np.uint8)
 
     def dump(name, obj):
         with open(os.path.join(ann, name), "w") as fh:
@@ -313,36 +390,6 @@ def write_training_datasets(root, seed=MAIN_SEED, shapes=None):
         dump(json_name, {"meta": {"category_labels": {str(c): str(c) for c in cat_choices}},
                          "images": images})
 
-    def video_set(name, base, json_name, specs, sub=""):
-        """specs: (seq id, frames, {iid: category}, {iid: frames without it})"""
-        h, w = shapes[name]
-        sequences = []
-        for seq_id, n_frames, cats, absent in specs:
-            os.makedirs(os.path.join(base, sub, seq_id))
-            bg = texture(rng, h, w + 2 * n_frames)  # the camera pans 2 px a frame
-            objs = {iid: (rng.uniform(0.3, 0.7) * h, rng.uniform(0.25, 0.75) * w,
-                          rng.uniform(0.08, 0.2) * h, rng.uniform(0.05, 0.12) * w,
-                          rng.uniform(-0.004, 0.004, 2) * (h, w), rng.randint(0, 256, 3))
-                    for iid in cats}
-            paths, segmentations = [], []
-            for t in range(n_frames):
-                img = np.ascontiguousarray(bg[:, 2 * t:2 * t + w])
-                seg_t = {}
-                for iid, (cy, cx, ry, rx, v, col) in objs.items():
-                    if t not in absent.get(iid, ()):
-                        m = blob(h, w, cy + v[0] * t, cx + v[1] * t, ry, rx)
-                        paint(img, m, col)
-                        seg_t[str(iid)] = rle_str(m)
-                paths.append(f"{seq_id}/{t:05d}.jpg")
-                cv2.imwrite(os.path.join(base, sub, paths[-1]), img)
-                segmentations.append(seg_t)
-            sequences.append({"id": seq_id, "height": h, "width": w, "image_paths": paths,
-                              "categories": {str(i): c for i, c in cats.items()},
-                              "segmentations": segmentations})
-        labels = {str(c): str(c) for s in specs for c in s[2].values()}
-        dump(json_name, {"meta": {"category_labels": labels}, "sequences": sequences})
-        return sequences
-
     image_set("coco", "COCO_TRAIN_IMAGES_DIR", "coco_train.json", 8,
               [1, 1, 1, 3, 18, 44, 62], (1, 7), lambda k: rng.uniform(0.06, 0.2))
     image_set("pascal_voc", "PASCAL_VOC_IMAGES_DIR", "pascal_voc_train.json", 8,
@@ -351,6 +398,9 @@ def write_training_datasets(root, seed=MAIN_SEED, shapes=None):
     image_set("mapillary", "MAPILLARY_IMAGES_DIR", "mapillary_train.json", 3,
               [20, 56] * 8 + [55, 62, 1, 3], (45, 46),
               lambda k: 0.002 if k % 15 == 0 else rng.uniform(0.08, 0.14))
+
+    def video_set(name, base, json_name, specs, sub=""):
+        return write_video_set(rng, base, ann, json_name, *shapes[name], specs, sub=sub)
 
     env["YOUTUBE_VIS_BASE_DIR"] = os.path.join(root, "youtube_vis")
     video_set("youtube_vis", env["YOUTUBE_VIS_BASE_DIR"], "youtube_vis_train.json", [
@@ -2781,6 +2831,488 @@ def fused_phase(out_root, smi):
     return lsap_row, paths
 
 
+# DAVIS 2017 val: the number of objects in each sequence's annotation, in the
+# order of DAVIS17_VAL_LENGTHS (61 objects, 3,984 object-frames)
+DAVIS17_VAL_OBJECTS = {
+    "bike-packing": 2, "blackswan": 1, "bmx-trees": 2, "breakdance": 1, "camel": 1,
+    "car-roundabout": 1, "car-shadow": 1, "cows": 1, "dance-twirl": 1, "dog": 1,
+    "dogs-jump": 3, "drift-chicane": 1, "drift-straight": 1, "goat": 1, "gold-fish": 5,
+    "horsejump-high": 2, "india": 3, "judo": 2, "kite-surf": 3, "lab-coat": 5,
+    "libby": 1, "loading": 3, "mbike-trick": 2, "motocross-jump": 2,
+    "paragliding-launch": 3, "parkour": 1, "pigs": 3, "scooter-black": 2,
+    "shooting": 3, "soapbox": 3}
+EVAL_SHAPES = {"davis": (480, 854), "ytvis": (720, 1280), "kittimots": (375, 1242)}
+EVAL_PRESETS = {"davis": None, "ytvis": "youtube_vis", "kittimots": "kitti_mots_2"}
+EVAL_CKPT_NAMES = {"davis": "davis.pth", "ytvis": "youtube_vis.pth",
+                   "kittimots": "kitti_mots.pth"}
+
+
+def write_eval_datasets(root, seed=MAIN_SEED, shapes=None):
+    """Phase 20's validation sets with masks, each in its dataset's layout
+    and frame size (``EVAL_SHAPES``, or ``shapes``), no pixel in two
+    objects: ``davis_val.json`` (2 sequences of 24 and 30 frames, 1 and 3
+    objects, an object absent for a few frames), ``youtube_vis_val.json`` (2
+    sequences of 20 frames, categories among the 40) and
+    ``kittimots_val.json`` (sequence 0002, 16 frames: two cars, a
+    pedestrian, an ignore region of category 3). Returns the environment
+    variables and {dataset: the JSON's sequences}."""
+    import numpy as np
+
+    shapes = dict(EVAL_SHAPES, **(shapes or {}))
+    rng = np.random.RandomState(seed + 20)
+    ann = os.path.join(root, "annotations")
+    os.makedirs(ann)
+    env = {"STEMSEG_JSON_ANNOTATIONS_DIR": ann,
+           "DAVIS_BASE_DIR": os.path.join(root, "davis"),
+           "YOUTUBE_VIS_BASE_DIR": os.path.join(root, "youtube_vis"),
+           "KITTIMOTS_BASE_DIR": os.path.join(root, "kitti_mots")}
+    sets = {
+        "davis": write_video_set(
+            rng, env["DAVIS_BASE_DIR"], ann, "davis_val.json", *shapes["davis"],
+            [("dv0", 24, {1: 1}, {1: {20, 21}}),
+             ("dv1", 30, {1: 1, 2: 1, 3: 1}, {3: set(range(4, 9))})], separate=True),
+        "ytvis": write_video_set(
+            rng, env["YOUTUBE_VIS_BASE_DIR"], ann, "youtube_vis_val.json", *shapes["ytvis"],
+            [("yv0", 20, {1: 5, 2: 17}, {}), ("yv1", 20, {1: 33, 2: 40, 3: 8}, {3: set(range(6))})],
+            sub="valid", separate=True),
+        "kittimots": write_video_set(
+            rng, env["KITTIMOTS_BASE_DIR"], ann, "kittimots_val.json", *shapes["kittimots"],
+            [("0002", 16, {1001: 1, 1002: 1, 2001: 2, 10000: 3}, {1002: {0, 1, 2}})],
+            separate=True)}
+    return env, sets
+
+
+def ground_truth_as_results(dataset, sequences, out_dir, device="cuda"):
+    """Each ground-truth object of ``sequences`` (category 3 excepted) as a
+    prediction: DAVIS PNGs and KITTI-MOTS txt through the port's writers
+    (the label volume at full size, ``mask_scale`` 1, so the resize chain is
+    the identity), YT-VIS ``results.json`` in its on-disk format (a track's
+    RLE masks, its category, score 1). Returns the ``--results`` path."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.inference.chainer import OUTLIER_LABEL
+    from stemseg_tpu_torch.utils import rle
+
+    entries = []
+    writer = None if dataset == "ytvis" else make_writer(dataset, out_dir, device=device)
+    for seq in sequences:
+        h, w, n = seq["height"], seq["width"], len(seq["image_paths"])
+        objects = [(int(iid), cat) for iid, cat in seq["categories"].items() if cat != 3]
+        masks = {iid: [rle.decode({"counts": s[str(iid)].encode(), "size": [h, w]})
+                       if str(iid) in s else None for s in seq["segmentations"]]
+                 for iid, _ in objects}
+        if dataset == "ytvis":
+            for iid, cat in objects:
+                entries.append({"video_id": seq["id"], "score": 1.0, "category_id": cat,
+                                "segmentations": [None if m is None else dict(
+                                    rle.encode(m), counts=rle.encode(m)["counts"].decode())
+                                    for m in masks[iid]]})
+            continue
+        labels = np.full((n, h, w), OUTLIER_LABEL, np.int32)
+        classes = np.zeros((n, h, w), np.int64)
+        for k, (iid, cat) in enumerate(objects, 1):  # track ids start at 1, as the chainer's
+            for t, m in enumerate(masks[iid]):
+                if m is not None:
+                    labels[t][m > 0] = k
+                    classes[t][m > 0] = cat
+        ids, counts = np.unique(labels, return_counts=True)
+        lifetimes = {int(i): int((labels == i).any(axis=(1, 2)).sum()) for i in ids}
+        writer.process_sequence(Sequence(seq["id"], n, (h, w)), torch.from_numpy(labels),
+                                dict(zip(map(int, ids), map(int, counts))), lifetimes,
+                                torch.from_numpy(classes), mask_scale=1, max_tracks=255,
+                                min_dim=min(h, w), max_dim=max(h, w))
+    if dataset == "ytvis":
+        os.makedirs(out_dir)
+        with open(os.path.join(out_dir, "results.json"), "w") as fh:
+            json.dump(entries, fh)
+        return os.path.join(out_dir, "results.json")
+    writer.save()
+    return os.path.join(out_dir, "results")
+
+
+PERFECT_KEYS = {"davis": ("J_mean", "F_mean", "J&F"), "ytvis": ("AP", "AP50", "AP75"),
+                "kittimots": ("sMOTSA", "MOTSA", "MOTSP", "sMOTSA_car", "MOTSA_car",
+                              "MOTSP_car", "sMOTSA_pedestrian", "MOTSA_pedestrian",
+                              "MOTSP_pedestrian")}
+
+
+def score_cli(dataset, results):
+    """``python -m stemseg_tpu_torch.eval.main`` in a process of its own;
+    returns its JSON line."""
+    out = subprocess.run([sys.executable, "-m", "stemseg_tpu_torch.eval.main", "--dataset",
+                          dataset, "--results", results], cwd=HERE, env=dict(os.environ),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"eval.main {dataset}: exit {out.returncode}\n{out.stderr[-4000:]}")
+    return out.stdout.strip().splitlines()[-1]
+
+
+def check_perfect_scores(root, sets, device="cuda"):
+    """Ground truth scored as a prediction: every J, F, J&F, AP, AP50, AP75,
+    sMOTSA, MOTSA and MOTSP exactly 1.0 (unrounded, in this process), and
+    the scoring CLI's JSON line equal on two runs."""
+    from stemseg_tpu_torch.eval.main import eval_davis, eval_kittimots, eval_ytvis
+
+    scorers = {"davis": eval_davis, "ytvis": eval_ytvis, "kittimots": eval_kittimots}
+    for dataset, sequences in sets.items():
+        t0 = time.perf_counter()
+        results = ground_truth_as_results(dataset, sequences,
+                                          os.path.join(root, "perfect_" + dataset), device)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = scorers[dataset](results)
+        t_score = time.perf_counter() - t0
+        bad = {k: metrics[k] for k in PERFECT_KEYS[dataset] if metrics[k] != 1.0}
+        if bad or (dataset == "kittimots" and (metrics["FP"] or metrics["IDS"])):
+            raise AssertionError(f"{dataset}: ground truth as results scored {metrics}")
+        lines = [score_cli(dataset, results) for _ in range(2)]
+        if lines[0] != lines[1]:
+            raise AssertionError(f"{dataset}: two runs of the scoring CLI printed {lines}")
+        log(f"  {dataset} ground truth as results ({len(sequences)} sequences, written in "
+            f"{t_write:.3f} s, scored in {t_score:.3f} s): {lines[0]}; the CLI's line equal "
+            f"on two runs")
+
+
+def convert_path_t(out_root, models_dir):
+    """Phase 18's JAX ``.ckpt`` of path T's weights through the port's
+    converter into ``models_dir/davis.pth``, held tensor for tensor against
+    T's own ``.pth``; T's ``config.yaml`` beside it with
+    ``min_seediness_prob`` 0.05."""
+    import glob
+
+    import torch
+
+    from stemseg_tpu_torch.config import load_config, merge, save_config
+    from stemseg_tpu_torch.models import convert_checkpoint
+    from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
+
+    ckpt = sorted(glob.glob(os.path.join(out_root, "T_jax", "*.ckpt")))[-1]
+    pth = find_latest_checkpoint(os.path.join(out_root, "T"))
+    os.makedirs(models_dir)
+    out = os.path.join(models_dir, "davis.pth")
+    t0 = time.perf_counter()
+    convert_checkpoint.main([ckpt, out])  # the config.yaml beside the .ckpt
+    seconds = time.perf_counter() - t0
+    want = torch.load(pth, map_location="cpu", weights_only=True)["model"]
+    got = torch.load(out, map_location="cpu", weights_only=True)["model"]
+    if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("the converted .pth differs from path T's")
+    cfg = load_config(os.path.join(os.path.dirname(ckpt), "config.yaml"))
+    save_config(merge(cfg, {"clustering": {"min_seediness_prob": 0.05}}),
+                os.path.join(models_dir, "config.yaml"))
+    log(f"  {os.path.basename(ckpt)} -> {out} in {seconds:.3f} s: {len(want)} tensors, "
+        f"each equal to {os.path.basename(pth)}'s")
+
+
+def random_eval_model(dataset, sequences, models_dir, device="cuda"):
+    """A random-weight model of the dataset's preset (fg logit centred on
+    the first sequence's first window) as ``models_dir/<name>.pth`` beside
+    its ``config.yaml`` (``min_seediness_prob`` 0.05)."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset, merge, save_config
+
+    cfg = merge(load_preset(EVAL_PRESETS[dataset]), {"clustering": {"min_seediness_prob": 0.05}})
+    seq = sequences[0]
+    base = os.path.join(os.environ["YOUTUBE_VIS_BASE_DIR"], "valid") if dataset == "ytvis" \
+        else os.environ["KITTIMOTS_BASE_DIR"]
+    frames = np.stack([cv2.imread(os.path.join(base, p)) for p in
+                       seq["image_paths"][:cfg.input.num_frames]])
+    model = build_random_model(cfg, frames, MAIN_SEED, device=device)
+    os.makedirs(models_dir)
+    torch.save({"model": model.state_dict()}, os.path.join(models_dir, EVAL_CKPT_NAMES[dataset]))
+    save_config(cfg, os.path.join(models_dir, "config.yaml"))
+    del model
+    torch.cuda.empty_cache()
+
+
+class ScorerTimes:
+    """Counts and times the calls of the DAVIS scorer's ``db_eval_iou`` and
+    ``db_eval_boundary`` (each call one (object, proposal) pair over the
+    sequence's frames) while it is installed."""
+
+    def __init__(self):
+        from stemseg_tpu_torch.eval import davis
+
+        self.module = davis
+        self.inner = {name: getattr(davis, name) for name in ("db_eval_iou", "db_eval_boundary")}
+        self.calls = {name: 0 for name in self.inner}
+        self.frames = {name: 0 for name in self.inner}
+        self.seconds = {name: 0.0 for name in self.inner}
+
+    def __enter__(self):
+        for name, fn in self.inner.items():
+            def timed(gt, pred, *args, _name=name, _fn=fn):
+                t0 = time.perf_counter()
+                out = _fn(gt, pred, *args)
+                self.seconds[_name] += time.perf_counter() - t0
+                self.calls[_name] += 1
+                self.frames[_name] += len(gt)
+                return out
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.module, name, fn)
+
+
+def eval_all_run(dataset, models_dir, out_dir, profiled):
+    """``python -m stemseg_tpu_torch.tools.eval_all --datasets <dataset>``
+    in this process, ``--device`` at its default (cuda); with ``profiled``
+    under ``profiled_launches`` (every window's clustering and lsap kernel
+    counted on the device, graph replays included), else with the DAVIS
+    scorer's calls timed. Every sequence must take the fused path and no
+    launch go to the single-block kernel or a plain version. Returns
+    eval_all's result for the dataset, the windows, the device counts (or
+    None) and the scorer's times (or None)."""
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.inference.windows import get_subsequence_frames
+    from stemseg_tpu_torch.ops import launch_counts, lsap, reset_launch_counts
+    from stemseg_tpu_torch.tools import eval_all
+
+    inner = cli.TrackGenerator._process_loaded
+    seen, res = [], {}
+
+    def process_loaded(self, sequence, frames, image_hw, max_tracks):
+        result = inner(self, sequence, frames, image_hw, max_tracks)
+        seen.append((len(get_subsequence_frames(len(frames), self.cfg.input.num_frames,
+                                                self.frame_overlap)), result[3] is None))
+        return result
+
+    def run():
+        seen.clear()
+        reset_launch_counts()
+        lsap.reset_launch_counts()
+        res["out"] = eval_all.main(["--models_dir", models_dir, "--output_dir", out_dir,
+                                    "--datasets", dataset])[dataset]
+
+    def expect():
+        n = sum(w for w, _ in seen)
+        return {"cluster_kernel": n, "lsa_kernel": n}
+
+    cli.TrackGenerator._process_loaded = process_loaded
+    times = None
+    try:
+        if profiled:
+            device = profiled_launches(run, expect, f"eval_all {dataset}")
+        else:
+            device = None
+            with ScorerTimes() as times:
+                run()
+    finally:
+        cli.TrackGenerator._process_loaded = inner
+    host = dict(launch_counts, **lsap.launch_counts)
+    if not all(fused for _, fused in seen) or not host["cluster_points_tiled"] \
+            or not host["lsa_masked"] or host["cluster_points_single"] \
+            or host["cluster_points_reference"] or host["lsa_masked_reference"]:
+        raise AssertionError(f"eval_all {dataset}: sequences (windows, fused) {seen}, host "
+                             f"launches {host}")
+    if not os.path.exists(os.path.join(out_dir, "RESULTS.md")):
+        raise AssertionError(f"eval_all {dataset}: no RESULTS.md in {out_dir}")
+    return res["out"], sum(w for w, _ in seen), device, times
+
+
+def eval_phase(out_root, smi, device="cuda"):
+    """Phase 20: convert -> infer -> score at full width. Writes the three
+    validation sets (``write_eval_datasets``) and points the dataset
+    variables at them; scores their ground truth as results (exactly 1.0,
+    the CLI deterministic); converts phase 18's JAX ``.ckpt`` of path T into
+    a ``.pth`` (equal to T's); then runs ``tools.eval_all`` on the card for
+    DAVIS (the converted ``.pth``), YT-VIS and KITTI-MOTS (random
+    ``youtube_vis`` and ``kitti_mots_2`` models), each twice: profiled (the
+    kernels' device launches), then timed (inference and scoring seconds;
+    for DAVIS the scorer's (object, proposal, frame) triples and its
+    ``db_eval_boundary`` calls), with equal metrics. Returns each run's
+    launches for the kernel table."""
+    import torch
+
+    root = os.path.join(out_root, "eval")
+    t0 = time.perf_counter()
+    env, sets = write_eval_datasets(root)
+    os.environ.update(env)
+    log(f"  three validation sets written in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{ds} {len(seqs)} sequences of {[len(s['image_paths']) for s in seqs]} "
+                    f"frames of {seqs[0]['height']}x{seqs[0]['width']}"
+                    for ds, seqs in sets.items()))
+    check_perfect_scores(root, sets, device)
+    convert_path_t(out_root, os.path.join(root, "models_davis"))
+    launches = {}
+    for dataset in ("davis", "ytvis", "kittimots"):
+        models_dir = os.path.join(root, "models_" + dataset)
+        if dataset != "davis":
+            random_eval_model(dataset, sets[dataset], models_dir, device)
+        first, n_windows, counts, _ = eval_all_run(dataset, models_dir,
+                                                   os.path.join(root, "run1"), True)
+        res, _, _, times = eval_all_run(dataset, models_dir, os.path.join(root, "run2"), False)
+        if res["metrics"] != first["metrics"]:
+            raise AssertionError(f"eval_all {dataset}: metrics {res['metrics']} on the second "
+                                 f"run, {first['metrics']} on the first")
+        launches[f"eval_all {dataset} (profiled)"] = {
+            "cluster_points_single": 0, "cluster_points_tiled": counts["cluster_kernel"],
+            "lsa_masked": counts["lsa_kernel"]}
+        n_frames = sum(len(s["image_paths"]) for s in sets[dataset])
+        log(f"  eval_all {dataset} ({smi}; scoring on the host's CPU): "
+            f"{json.dumps(res['metrics'])}")
+        log(f"  eval_all {dataset}: {n_frames} frames, {n_windows} windows, device launches "
+            f"{counts} (profiler, first run); inference_s {res['inference_s']:.3f} "
+            f"(first run, profiled: {first['inference_s']:.3f}), scoring_s "
+            f"{res['scoring_s']:.3f} (first run {first['scoring_s']:.3f}), scoring "
+            f"{1e3 * res['scoring_s'] / n_frames:.3f} ms a frame, scoring / inference "
+            f"{res['scoring_s'] / res['inference_s']:.3f}")
+        if dataset == "davis":
+            davis_scoring_projection(res, times, sets["davis"])
+    torch.cuda.empty_cache()
+    return launches
+
+
+def davis_scoring_projection(res, times, sequences):
+    """The DAVIS scorer's cost in the timed run, and what it projects for
+    DAVIS 2017 val (``DAVIS17_VAL_LENGTHS``, ``DAVIS17_VAL_OBJECTS``) with
+    each sequence's proposals at the run's mean and at the writer's limit
+    of 20: boundary and IoU time per (object, proposal, frame) triple, the
+    rest of the scoring wall per frame."""
+    n_frames = sum(len(s["image_paths"]) for s in sequences)
+    triples = times.frames["db_eval_boundary"]
+    pairs = times.calls["db_eval_boundary"]
+    run_obj_frames = sum(len(s["categories"]) * len(s["image_paths"]) for s in sequences)
+    t_b, t_j = times.seconds["db_eval_boundary"], times.seconds["db_eval_iou"]
+    rest = res["scoring_s"] - t_b - t_j
+    per_triple = (t_b + t_j) / triples
+    log(f"  DAVIS scoring: {triples} (object, proposal, frame) triples in {pairs} "
+        f"db_eval_boundary calls ({run_obj_frames} object-frames, "
+        f"{triples / run_obj_frames:.2f} proposals an object-frame), "
+        f"{1e3 * t_b / pairs:.3f} ms a call, {1e3 * t_b / triples:.4f} ms a triple; "
+        f"db_eval_iou {1e3 * t_j / triples:.4f} ms a triple; the rest (PNG and RLE decode, "
+        f"matching) {1e3 * rest / n_frames:.3f} ms a frame; scoring {res['scoring_s']:.3f} s")
+    obj_frames = sum(DAVIS17_VAL_OBJECTS[s] * n for s, n in DAVIS17_VAL_LENGTHS.items())
+    val_frames = sum(DAVIS17_VAL_LENGTHS.values())
+    for label, n_prop in (("this run's mean", triples / run_obj_frames), ("the limit", 20)):
+        seconds = obj_frames * n_prop * per_triple + val_frames * rest / n_frames
+        log(f"  DAVIS 2017 val scoring, projected ({val_frames} frames, {obj_frames} "
+            f"object-frames, {n_prop:.2f} proposals an object-frame, {label}): "
+            f"{obj_frames * n_prop:.0f} triples, {seconds:.1f} s")
+
+
+def dilated_phase(smi, device="cuda"):
+    """Phase 21: the dilated decoder trunk. An ``EmbeddingDecoder`` with
+    ``trunk_type="squeeze_expand_dilated_decoder"`` at ``davis_2``'s widths
+    on one 16-frame window of path A's FPN maps (704x1248 input), and the
+    plain trunk's head on the same window: forward ms (CUDA events) and
+    peak memory above the inputs, in float32 and bf16. Then at the tests'
+    small size each head with the dilated trunk on the GPU against the CPU
+    (same weights and inputs, TF32 off): forward within 1e-3, input and
+    parameter gradients within a per-leaf relative L2 of 1e-3."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset
+    from stemseg_tpu_torch.inference.engine import InferenceEngine
+    from stemseg_tpu_torch.models import init_random_weights
+    from stemseg_tpu_torch.models.decoders import (
+        EmbeddingDecoder,
+        SeedinessDecoder,
+        SemsegDecoder,
+    )
+    from stemseg_tpu_torch.models.embedding_utils import get_nb_embedding_dims, get_nb_free_dims
+    from stemseg_tpu_torch.utils.device import resolve_device
+
+    resolve_device(device)  # TF32 off
+    cfg = load_preset("davis_2")
+    m, e = cfg.model, cfg.model.embeddings
+    c = m.resnets.backbone_out_channels
+    frames = synthetic_frames(cfg.input.num_frames, 480, 854, seed=MAIN_SEED)
+    model = build_random_model(cfg, frames, MAIN_SEED, device=device)
+    feats = window_features(InferenceEngine(cfg, model), frames)
+    mode = m.embedding_dim_mode  # channels: embeddings | variances | fused seediness
+    out_shape = (1, get_nb_embedding_dims(mode) + e.embedding_size - get_nb_free_dims(mode)
+                 + (not m.use_seediness_head), *feats[-1].shape[2:])
+    del model
+    torch.cuda.empty_cache()
+
+    def head(trunk_type, dtype=None):
+        return EmbeddingDecoder(c, tuple(e.inter_channels), e.embedding_size,
+                                m.embedding_dim_mode, e.tanh_activation,
+                                seediness_output=not m.use_seediness_head,
+                                num_frames=cfg.input.num_frames, norm_type=e.normalization_layer,
+                                gn_groups=e.gn_num_groups, pool_type=e.pool_type, dtype=dtype,
+                                trunk_type=trunk_type)
+
+    for trunk_type in ("squeeze_expand_decoder", "squeeze_expand_dilated_decoder"):
+        ref = head(trunk_type)
+        init_random_weights(ref, 1)
+        for dtype in (None, torch.bfloat16):
+            h = head(trunk_type, dtype)
+            h.load_state_dict(ref.state_dict())
+            h.to(device).eval()
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = h(feats)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                ms = time_cuda(lambda: h(feats), 5)
+            if tuple(out.shape) != out_shape or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{trunk_type}: output {tuple(out.shape)}, finite "
+                                     f"{bool(torch.isfinite(out).all())}")
+            n_params = sum(p.numel() for p in h.parameters())
+            log(f"  {trunk_type} embedding head ({'bf16' if dtype else 'fp32'}, {n_params:,} "
+                f"parameters, {smi}): forward {ms:.3f} ms to {out_shape} (CUDA events, "
+                f"mean of 5), peak {peak / 2 ** 30:.3f} GiB above the inputs")
+            del h, out
+        torch.cuda.empty_cache()
+    del feats
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(21)
+    for name, make in (("embedding", lambda t: EmbeddingDecoder(
+            16, (16, 16, 8, 8), 4, "xyff", seediness_output=True, num_frames=t,
+            gn_groups=4, trunk_type="squeeze_expand_dilated_decoder")),
+                       ("seediness", lambda t: SeedinessDecoder(
+            16, (16, 16, 8, 8), num_frames=t, gn_groups=4,
+            trunk_type="squeeze_expand_dilated_decoder")),
+                       ("semseg", lambda t: SemsegDecoder(
+            16, 3, (16, 16, 8, 8), num_frames=t, gn_groups=4,
+            trunk_type="squeeze_expand_dilated_decoder"))):
+        for t in (8, 16):
+            feats = [torch.from_numpy(rng.randn(1, 16, t, s, 3 * s // 2).astype(np.float32))
+                     for s in (2, 4, 8, 16)]
+            cpu = make(t)
+            init_random_weights(cpu, t)
+
+            def run(dev, weight=None, _feats=feats, _make=make, _t=t, _cpu=cpu):
+                h = _make(_t).to(dev)
+                h.load_state_dict(_cpu.state_dict())
+                xs = [f.to(dev).clone().requires_grad_(True) for f in _feats]
+                y = h(xs)
+                if weight is None:
+                    weight = torch.from_numpy(rng.randn(*y.shape).astype(np.float32))
+                (y * weight.to(dev)).sum().backward()
+                return (y.detach().double().cpu(),
+                        {n: p.grad.double().cpu() for n, p in h.named_parameters()},
+                        [x.grad.double().cpu() for x in xs], weight)
+
+            results = {"cpu": run("cpu")}
+            results[device] = run(device, results["cpu"][3])
+            (y_c, g_c, x_c, _), (y_g, g_g, x_g, _) = results["cpu"], results[device]
+            fwd = float((y_g - y_c).abs().max())
+            grads = [(float((g_g[n] - g).norm() / g.norm().clamp(min=1e-30)), n)
+                     for n, g in g_c.items()]
+            grads += [(float((a - b).norm() / b.norm().clamp(min=1e-30)), f"input {i}")
+                      for i, (a, b) in enumerate(zip(x_g, x_c))]
+            worst = max(grads)
+            log(f"  dilated {name} head, {t} frames, GPU vs CPU: forward max abs "
+                f"{fwd:.3g}, gradients max per-leaf relative L2 {worst[0]:.3g} ({worst[1]}) "
+                f"over {len(grads)} tensors")
+            if not fwd <= 1e-3 or not worst[0] <= 1e-3:
+                raise AssertionError(f"dilated {name} head, {t} frames: forward {fwd}, "
+                                     f"gradients {worst}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "stemseg_tpu_torch")):
         sys.stderr.write("chip_smoke: run it from the root of a checkout\n")
@@ -2918,15 +3450,27 @@ def main():
         t_phase = time.perf_counter()
         lsap_row, fused = fused_phase(out_root, smi)
         log(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 20: convert -> infer -> score at full width (tools.eval_all on the card, "
+            "scoring on the host)")
+        t_phase = time.perf_counter()
+        launches_eval = eval_phase(out_root, smi)
+        log(f"  phase 20: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 21: the dilated decoder trunk (davis_2 widths, path A's window; "
+            "GPU against CPU at the tests' size)")
+        t_phase = time.perf_counter()
+        dilated_phase(smi)
+        log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
-    # the fused runs (R's and the .pth's CLI runs, phase 19's paths) replay
-    # their kernels from CUDA graphs: the profiler counts their launches
+    # the fused runs (R's and the .pth's CLI runs, phase 19's paths, phase
+    # 20's eval_all runs) replay their kernels from CUDA graphs: the profiler
+    # counts their launches
     launches_by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d,
                         "C'": launches_c2, "T": launches_t, "R (profiled)": launches_r,
                         "A bf16": launches_a16, "C bf16": launches_c16, "T bf16": launches_t16,
-                        "CLI .ckpt": launches_cli, "CLI .pth (profiled)": launches_cli_pth}
+                        "CLI .ckpt": launches_cli, "CLI .pth (profiled)": launches_cli_pth,
+                        **launches_eval}
     for path, numbers in fused.items():  # every window of these goes to the tiled kernel
         launches_by_path[f"{path} fused (profiled)"] = {
             "cluster_points_single": 0,

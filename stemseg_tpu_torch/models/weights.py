@@ -50,10 +50,15 @@ def _param_key(path: Tuple[str, ...]) -> str:
         return f"backbone.fpn.{path[1]}.{leaf}"
     head = path[0]
     if path[1] == "trunk":
-        m = re.match(r"(block_\d+x)_(conv|norm)(\d)$", path[2])
+        # a squeeze block's slot is (conv or atrous pyramid, norm, ReLU, pool)
+        m = re.match(r"(block_\d+x)_(conv|norm|aspp)(\d)$", path[2])
         if m:
             block, kind, slot = m.group(1), m.group(2), int(m.group(3))
-            return f"{head}.{block}.{4 * slot + (kind == 'norm')}.{leaf}"
+            key = f"{head}.{block}.{4 * slot + (kind == 'norm')}"
+            if kind == "aspp":  # atrous_convs_<i> or conv_out (after its ReLU)
+                sub = re.match(r"atrous_convs_(\d+)$", path[3])
+                key += f".atrous_convs.{sub.group(1)}" if sub else ".conv_out.1"
+            return f"{key}.{leaf}"
         return f"{head}.{path[2]}.{leaf}"
     return f"{head}.{path[1]}.{leaf}"
 
@@ -71,15 +76,21 @@ def _constant_key(path: Tuple[str, ...]) -> str:
 
 def state_dict_from_jax(variables: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'constants'}`` tree (numpy leaves) -> the port's
-    ``state_dict``."""
+    ``state_dict``. Raises ``ValueError`` if two leaves map to one key."""
     out: Dict[str, torch.Tensor] = {}
+
+    def put(key, path, value):
+        if key in out:
+            raise ValueError(f"two leaves map to {key}, the second {'/'.join(path)}")
+        out[key] = torch.from_numpy(np.array(value, np.float32))
+
     for path, value in _leaves(variables.get("params", {})):
         value = np.asarray(value, np.float32)
         if path[-1] == "kernel":
             value = _jax_conv_to_torch(value)
-        out[_param_key(path)] = torch.from_numpy(np.array(value, np.float32))
+        put(_param_key(path), path, value)
     for path, value in _leaves(variables.get("constants", {})):
-        out[_constant_key(path)] = torch.from_numpy(np.array(value, np.float32))
+        put(_constant_key(path), path, value)
     return out
 
 

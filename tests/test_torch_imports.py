@@ -33,7 +33,11 @@ assert {"stemseg_tpu_torch.losses.lovasz", "stemseg_tpu_torch.training.main",
         "stemseg_tpu_torch.data.concat_dataset",
         "stemseg_tpu_torch.data.visualize_data_loading",
         "stemseg_tpu_torch.models.flax_msgpack", "stemseg_tpu_torch.inference.fused_pipeline",
-        "stemseg_tpu_torch.inference.lsap", "stemseg_tpu_torch.ops.lsap"} <= set(names)
+        "stemseg_tpu_torch.inference.lsap", "stemseg_tpu_torch.ops.lsap",
+        "stemseg_tpu_torch.eval", "stemseg_tpu_torch.eval.davis", "stemseg_tpu_torch.eval.mots",
+        "stemseg_tpu_torch.eval.ytvis", "stemseg_tpu_torch.eval.main",
+        "stemseg_tpu_torch.models.convert_checkpoint",
+        "stemseg_tpu_torch.tools.eval_all"} <= set(names)
 print(len(names), bad)
 """
 
@@ -48,7 +52,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_no_cuda_env(),
                          capture_output=True, text=True, timeout=300, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 65
+    assert int(n) >= 72
     assert bad == "[]", bad
 
 
@@ -138,6 +142,22 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+def test_eval_all_needs_cuda_or_explicit_cpu(tmp_path, monkeypatch):
+    import json
+
+    from stemseg_tpu_torch.tools import eval_all
+
+    (tmp_path / "davis.pth").write_bytes(b"")
+    (tmp_path / "davis_val.json").write_text(json.dumps(
+        {"meta": {"category_labels": {"1": "object"}}, "sequences": []}))
+    monkeypatch.setenv("DAVIS_BASE_DIR", str(tmp_path))
+    monkeypatch.setenv("STEMSEG_JSON_ANNOTATIONS_DIR", str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_all.main(["--models_dir", str(tmp_path), "--output_dir", str(tmp_path / "out"),
+                       "--datasets", "davis"])
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
