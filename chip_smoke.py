@@ -156,7 +156,30 @@ which raises on failure (the script then exits non-zero):
    forward ms and peak memory in float32 and bf16; the three heads with
    the dilated trunk at the tests' small size (8 and 16 frames) on the GPU
    against the CPU: forward within 1e-3, input and parameter gradients
-   within a per-leaf relative L2 of 1e-3, TF32 off.
+   within a per-leaf relative L2 of 1e-3, TF32 off;
+22. data parallelism, a JAX session, a sustained run: (a) path T for 2
+   optimizer steps through the trainer as ``torchrun`` starts it at world 1
+   (an NCCL process group: the gradient and loss all-reduces, the global
+   normalisers, the rank slices of the stream) against the plain trainer,
+   with cuDNN's deterministic algorithms: weights and logged terms bitwise
+   equal, or, where ops without a deterministic CUDA implementation ran and
+   the weights differ, within a per-leaf relative L2 of 1e-3, said so; (b)
+   two gloo ranks sharing the card (``python3 chip_smoke.py --rank-worker
+   SPEC``) at ``max_samples_per_chip`` 1 against one process at 2 on the
+   same global batch: loss terms within 1e-4, the first micro-step's
+   gradient within 1e-3 (phase 13's bounds), each one's step time and the
+   gradient all-reduce's; (c) the inference CLI's ``--data_parallel`` on
+   path A's preset in bf16 over phase 20's generated DAVIS sequences,
+   byte-equal to the serial CLI, and ``run_batch`` over ``cuda:0`` twice
+   (two pipelines, two host threads) equal to ``run``, each with its
+   clustering and lsap launches counted by the profiler; (d) phase 11's
+   last checkpoint written as a whole JAX SGD session and restored by
+   ``--restore_session``: weights, momentum, LR schedule and step bitwise
+   equal to resuming the ``.pth``, then 2 steps each held as in (a); (e)
+   ``tools.train_sustained`` on path T in bf16, 12 steps, SIGINT after
+   step 6: resumed, stitched, the loss falling, steps/s and loader waits.
+   (b) and (c) run first, alone; (e) runs in a subprocess beside (a) and
+   (d), whose checks are numerical.
 
 Phases 4-18 run the streaming path (``use_fused=False``), so their layer
 splits stay comparable; the inference CLI in phases 14 and 18 runs its
@@ -176,6 +199,7 @@ Without a CUDA device, or outside a checkout, it exits non-zero and prints
 no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2152,18 +2176,25 @@ def msgpack_pack(obj):
     return bytes(out)
 
 
-def write_jax_session(pth, step, ckpt_path):
-    """The weights of the port trainer's ``pth`` as a JAX trainer's session
-    file: ``{"state": {"step", "params", "constants", "opt_state"}, "extra",
-    "step"}``, the optimizer state's top level as ``optax.MultiSteps``
-    writes it (its accumulated gradients zero). Raises unless the port's
-    ``state_dict_from_jax`` maps the tree back to the same tensors."""
+def write_jax_session(pth, step, ckpt_path, cfg=None):
+    """The port trainer's ``pth`` as a JAX trainer's session file:
+    ``{"state": {"step", "params", "constants", "opt_state"}, "extra",
+    "step"}``. Without ``cfg`` the optimizer state is ``optax.MultiSteps``'s
+    top level alone (zero accumulated gradients, no inner state): a file for
+    the weights. With ``cfg`` (an SGD config) it is the whole session, the
+    inverse of ``training/optax_state.py``: the momentum buffers as the
+    ``trace`` of the ``multi_transform`` chain (frozen leaves empty), the
+    LR schedule's ``last_epoch`` as its ``count``, under ``MultiSteps`` when
+    the config accumulates; the logger state is carried in ``extra``.
+    Raises unless the port's ``state_dict_from_jax`` maps the tree back to
+    the same tensors."""
     import numpy as np
     import torch
 
     from stemseg_tpu_torch.models import state_dict_from_jax
 
-    sd = torch.load(pth, map_location="cpu", weights_only=True)["model"]
+    ckpt = torch.load(pth, map_location="cpu", weights_only=True)
+    sd = ckpt["model"]
     variables = jax_variables_from_state_dict(sd)
     back = state_dict_from_jax(variables)
     if back.keys() != sd.keys() or not all(torch.equal(back[k], sd[k].float()) for k in sd):
@@ -2173,12 +2204,41 @@ def write_jax_session(pth, step, ckpt_path):
         return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
                 for k, v in tree.items()}
 
-    state = {"step": np.asarray(step, np.int32), **variables,
-             "opt_state": {"mini_step": np.asarray(0, np.int32),
-                           "gradient_step": np.asarray(step, np.int32),
-                           "inner_opt_state": {}, "acc_grads": zeros(variables["params"]),
-                           "skip_state": {}}}
-    data = msgpack_pack({"state": state, "extra": {"logger": {}}, "step": int(step)})
+    def masked(tree, frozen):
+        return {k: masked(v, frozen.get(k, {})) if isinstance(v, dict)
+                else ({} if k in frozen else v) for k, v in tree.items()}
+
+    accumulate, inner, extra = 2, {}, {"logger": {}}
+    if cfg is not None:
+        from stemseg_tpu_torch.models import build_model
+
+        if cfg.training.optimizer.lower() != "sgd":
+            raise NotImplementedError("a whole session is written for SGD configs")
+        model = build_model(cfg, device="meta", for_training=True)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+        opt = ckpt["optimizer"]
+        buffers = {names[i]: opt["state"][i]["momentum_buffer"] if i in opt["state"]
+                   else torch.zeros_like(sd[names[i]]) for i in opt["param_groups"][0]["params"]}
+        trace = masked(jax_variables_from_state_dict(
+            {**buffers, **{n: torch.zeros_like(sd[n]) for n in frozen}})["params"],
+            jax_variables_from_state_dict({n: sd[n] for n in frozen})["params"])
+        chain = {"0": {}, "1": {"trace": trace},
+                 "2": {"count": np.asarray(ckpt["scheduler"]["last_epoch"], np.int32)}}
+        if cfg.training.clip_gradients:
+            chain = {"0": {}, "1": chain}
+        inner = {"inner_states": {"frozen": {"inner_state": {}},
+                                  "trainable": {"inner_state": chain}}}
+        accumulate = max(1, round(cfg.training.batch_size / cfg.training.max_samples_per_chip))
+        extra = ckpt.get("extra") or extra
+    opt_state = inner if accumulate == 1 else {
+        "mini_step": np.asarray(0, np.int32), "gradient_step": np.asarray(step, np.int32),
+        "inner_opt_state": inner, "acc_grads": zeros(variables["params"]), "skip_state": {}}
+    # a JAX TrainState counts micro-steps (the weights-only file keeps its step)
+    state = {"step": np.asarray(step * accumulate if cfg is not None else step, np.int32),
+             **variables,
+             "opt_state": opt_state}
+    data = msgpack_pack({"state": state, "extra": extra, "step": int(step)})
     with open(ckpt_path, "wb") as fh:
         fh.write(data)
     return len(data)
@@ -3313,6 +3373,548 @@ def dilated_phase(smi, device="cuda"):
                                      f"gradients {worst}")
 
 
+# -- phase 22: data parallelism, a JAX session, a sustained run ---------------
+
+DIST_KEYS = ("total", "lovasz", "var_smoothness", "seediness", "total_embedding", "grad_norm")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    """The variables torchrun gives rank ``rank``; both ranks on cuda:0."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "GLOO_SOCKET_IFNAME": "lo"}
+
+
+class DeterministicTraining:
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warn-only) inside the block; ``nondeterministic`` lists the ops that
+    warned they have no deterministic CUDA implementation."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self.prev = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self.catcher = warnings.catch_warnings(record=True)
+        self.caught = self.catcher.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.catcher.__exit__(*exc)
+        torch.backends.cudnn.deterministic = self.prev[0]
+        torch.use_deterministic_algorithms(self.prev[1], warn_only=self.prev[2])
+        return False
+
+    @property
+    def nondeterministic(self):
+        return sorted({str(w.message).split(" does not have")[0] for w in self.caught
+                       if "deterministic" in str(w.message)})
+
+
+def compare_states(a, b):
+    """(bitwise equal, worst per-leaf relative L2 and its key) of two state
+    dicts."""
+    import torch
+
+    worst = (0.0, "")
+    for k in a:
+        x, y = a[k].double(), b[k].double()
+        rel = float(torch.linalg.vector_norm(x - y) / max(float(torch.linalg.vector_norm(y)),
+                                                          1e-30))
+        worst = max(worst, (rel, k))
+    return all(torch.equal(a[k], b[k]) for k in a), worst
+
+
+def hold_bitwise(tag, a, b, det):
+    """Holds two runs of the same computation bitwise equal. Their backward
+    passes the ops in ``det.nondeterministic`` (atomics), so where those
+    ran and the two differ, holds them within a per-leaf relative L2 of
+    1e-3 (phase 13's gradient bound) and says so. Returns the numbers."""
+    bitwise, worst = compare_states(a, b)
+    out = {"bitwise": bitwise, "worst_rel_l2": worst[0], "worst_key": worst[1],
+           "nondeterministic_ops": det.nondeterministic}
+    if not bitwise and (not det.nondeterministic or worst[0] > 1e-3):
+        raise AssertionError(f"{tag}: not bitwise equal, worst {worst}; ops without a "
+                             f"deterministic CUDA implementation: {det.nondeterministic}")
+    log(f"  {tag}: {'bitwise equal' if bitwise else 'NOT bitwise equal'}; worst leaf relative "
+        f"L2 {worst[0]:.3e} ({worst[1]}); ops that warned of no deterministic CUDA "
+        f"implementation: {det.nondeterministic or 'none'}")
+    return out
+
+
+def cpu_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def world_one_phase(out_root):
+    """Phase 22 (a): path T for 2 optimizer steps through the trainer as
+    torchrun starts it at world 1 (NCCL process group, all-reduces of the
+    gradient and the loss terms, global normalisers, rank slices of the
+    stream), against the plain trainer on the same seed and stream."""
+    import torch
+    import torch.distributed as dist
+
+    cfg = training_cfg("davis_1", 2)
+    runs = {}
+    with DeterministicTraining() as det:
+        for kind in ("plain", "nccl"):
+            env = rank_env(0, 1, free_port()) if kind == "nccl" else {}
+            os.environ.update(env)
+            try:
+                t0 = time.perf_counter()
+                trainer = new_trainer(cfg, os.path.join(out_root, f"T22_{kind}"))
+                if kind == "nccl" and not (dist.is_initialized()
+                                           and dist.get_backend() == "nccl"
+                                           and trainer.world == 1 and trainer.train_step.distributed):
+                    raise AssertionError("phase 22 (a): the trainer did not join an NCCL group")
+                trainer.start()
+                runs[kind] = {"state": cpu_state(trainer.model), "wall_s": time.perf_counter() - t0,
+                              "records": read_metrics(trainer.model_dir, DIST_KEYS),
+                              "intervals_s": steady_intervals(trainer, 0)}
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            del trainer
+            torch.cuda.empty_cache()
+    plain, nccl = runs["plain"], runs["nccl"]
+    losses_equal = plain["records"] == nccl["records"]
+    for kind, run in runs.items():
+        log(f"  (a) {kind}: 2 steps in {run['wall_s']:.3f} s (build included), step interval "
+            f"{['%.4f' % s for s in run['intervals_s']]} s; " + "; ".join(
+                f"step {r['step']} total {r['total']:.6f} grad_norm {r['grad_norm']:.6f}"
+                for r in run["records"]))
+    log(f"  (a) logged loss terms and grad_norm of both steps bitwise equal: {losses_equal}")
+    out = hold_bitwise("(a) weights after 2 steps, NCCL world 1 against plain", nccl["state"],
+                       plain["state"], det)
+    if not losses_equal and out["bitwise"]:
+        raise AssertionError(f"(a) equal weights but other logged terms: {plain['records']} / "
+                             f"{nccl['records']}")
+    out.update(losses_bitwise=losses_equal,
+               step_s={k: r["intervals_s"] for k, r in runs.items()})
+    return out
+
+
+def two_rank_worker(spec_path):
+    """One rank of phase 22 (b), started by ``two_rank_phase``: path T's
+    trainer at ``max_samples_per_chip`` 1 in a gloo group of 2 ranks that
+    share cuda:0. The first micro-step's gradient and loss terms (summed
+    over the ranks); then 3 optimizer steps, the last 2 timed, and the
+    gradient all-reduce alone, timed. Rank 0 saves them."""
+    import torch
+
+    from stemseg_tpu_torch.parallel import all_reduce_sum_
+    from stemseg_tpu_torch.training.loader import to_device
+    from stemseg_tpu_torch.training.step import TrainStep
+    from stemseg_tpu_torch.utils.distributed import synchronize
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    trainer = new_trainer(training_cfg("davis_1", 4), spec["model_dir"], "--dist_backend", "gloo")
+    if trainer.world != 2 or torch.distributed.get_backend() != "gloo":
+        raise AssertionError(f"rank {trainer.rank}: world {trainer.world}")
+    batches = iter(trainer.make_loader(0))
+    probe = TrainStep(trainer.model, trainer.cfg, trainer.optimizer, trainer.scheduler,
+                      accumulate_steps=2)
+    metrics = {k: float(v) for k, v in probe(to_device(next(batches), trainer.device)).items()}
+    grads = {n: p.grad.detach().cpu().clone() for n, p in trainer.model.named_parameters()
+             if p.requires_grad}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    params = [p for p in trainer.model.parameters() if p.requires_grad]
+    reduce_ms = []
+    for _ in range(3):
+        bucket = [torch.ones_like(p) for p in params]
+        synchronize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_sum_(bucket)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(bool((b == 2).all()) for b in bucket):
+            raise AssertionError("the all-reduce did not sum the two ranks")
+    del bucket
+    step_s = []
+    for _ in range(3):
+        batch = to_device(next(batches), trainer.device)
+        synchronize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    if trainer.rank == 0:
+        torch.save({"metrics": metrics, "grads": grads, "step_s": step_s[1:],
+                    "reduce_ms": reduce_ms[1:],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, spec["out"])
+    torch.distributed.destroy_process_group()
+
+
+def two_rank_phase(out_root):
+    """Phase 22 (b): two gloo ranks sharing the card at ``per_chip`` 1
+    against one process on the same global batch: (i) at ``per_chip`` 2,
+    loss terms within 1e-4 relative and the first micro-step's gradient
+    within a per-leaf relative L2 of 1e-3 (phase 13's bounds), printed,
+    and the whole gradient within 1e-3, held (cuDNN picks its algorithms
+    by batch size, and a leaf whose gradient cancels can miss 1e-3); (ii) the
+    same two clips one at a time in one process, each loss over the global
+    normalisers, the two gradients summed (the ranks' convolution shapes):
+    loss terms within 1e-6, per-leaf gradients within 1e-4. Each one's step
+    time and the all-reduce's."""
+    import torch
+
+    from stemseg_tpu_torch.config import merge
+    from stemseg_tpu_torch.training.loader import DEVICE_KEYS, to_device
+    from stemseg_tpu_torch.training.step import TrainStep, make_output_loss_fn, prepare_targets
+
+    model_dir = os.path.join(out_root, "T22_ranks")
+    spec = {"model_dir": model_dir, "out": os.path.join(out_root, "T22_ranks.pt")}
+    spec_path = os.path.join(out_root, "T22_ranks.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                               spec_path], env=dict(os.environ, **rank_env(r, 2, port)),
+                              cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError("phase 22 (b): a rank failed:\n" + "\n".join(
+            f"rank {r} exit {p.returncode}:\n{out[-3000:]}"
+            for r, (p, out) in enumerate(zip(procs, outs))))
+    ranks_wall = time.perf_counter() - t0
+    got = torch.load(spec["out"], weights_only=True)
+
+    cfg = merge(training_cfg("davis_1", 4), {"training": {"max_samples_per_chip": 2}})
+    trainer = new_trainer(cfg, os.path.join(out_root, "T22_one"))
+    batches = iter(trainer.make_loader(0))
+    probe = TrainStep(trainer.model, cfg, trainer.optimizer, trainer.scheduler,
+                      accumulate_steps=2)
+    first = to_device(next(batches), trainer.device)
+    if first["images"].shape[0] != 2:
+        raise AssertionError(f"phase 22 (b): a batch of {first['images'].shape[0]}")
+    metrics = {k: float(v) for k, v in probe(first).items()}
+    params = [(n, p) for n, p in trainer.model.named_parameters() if p.requires_grad]
+    grads = {n: p.grad.detach().cpu() for n, p in params}
+    trainer.optimizer.zero_grad(set_to_none=True)
+
+    # (ii): the ranks' shapes in one process
+    halves = [{k: first[k][i:i + 1] for k in DEVICE_KEYS} for i in range(2)]
+    total = sum(int((prepare_targets(h["masks"].float(), h["ignore_masks"].float(),
+                                     h["category_ids"])[0].flatten(2).amax(2) > 0).sum())
+                for h in halves)
+    loss_fn = make_output_loss_fn(cfg, world_counts=lambda n, s: (total, 2), world_size=2)
+    split_grads, split_metrics = {n: 0.0 for n, _ in params}, {}
+    for h in halves:
+        loss, terms = loss_fn(trainer.model(h["images"].permute(0, 1, 4, 2, 3)), h)
+        for (n, _), g in zip(params, torch.autograd.grad(loss, [p for _, p in params])):
+            split_grads[n] = split_grads[n] + g.detach().cpu()
+        for k, v in terms.items():
+            split_metrics[k] = split_metrics.get(k, 0.0) + float(v.detach())
+
+    step_s = []
+    for _ in range(3):
+        batch = to_device(next(batches), trainer.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, probe, halves, first
+    torch.cuda.empty_cache()
+
+    for k, v in metrics.items():
+        if abs(got["metrics"][k] - v) > 1e-4 * max(abs(v), 1e-6):
+            raise AssertionError(f"phase 22 (b): {k} {got['metrics'][k]} on 2 ranks, {v} on one")
+    for k, v in split_metrics.items():
+        if abs(got["metrics"][k] - v) > 1e-6 * max(abs(v), 1e-6):
+            raise AssertionError(f"phase 22 (b) (ii): {k} {got['metrics'][k]} on 2 ranks, {v} "
+                                 "one clip at a time")
+    _, worst = compare_states(got["grads"], grads)
+    _, worst_split = compare_states(got["grads"], split_grads)
+    flat = [torch.cat([d[n].reshape(-1).double() for n, _ in params])
+            for d in (got["grads"], grads)]
+    whole = float(torch.linalg.vector_norm(flat[0] - flat[1]) / torch.linalg.vector_norm(flat[1]))
+    over = sorted(n for n, _ in params if compare_states({n: got["grads"][n]}, {n: grads[n]})[1][0]
+                  > 1e-3)
+    if worst_split[0] > 1e-4 or whole > 1e-3:
+        raise AssertionError(f"phase 22 (b): gradient against per_chip 2 worst {worst}, whole "
+                             f"{whole:.3e}; against the clips one at a time worst {worst_split}")
+    log(f"  (b) 2 gloo ranks on cuda:0 at per_chip 1 against 1 process at per_chip 2: loss "
+        f"terms {', '.join(f'{k} {got['metrics'][k]:.6f}/{v:.6f}' for k, v in metrics.items())}; "
+        f"gradient: worst leaf relative L2 {worst[0]:.3e} ({worst[1]}), {len(over)} leaves above "
+        f"1e-3 {over[:4]}, the whole gradient {whole:.3e}")
+    log(f"  (b) against the same clips one at a time in one process (the ranks' shapes): worst "
+        f"leaf relative L2 {worst_split[0]:.3e} ({worst_split[1]})")
+    log(f"  (b) optimizer step (one micro-step of 2 clips): 2 ranks sharing the card "
+        f"{['%.4f' % s for s in got['step_s']]} s, 1 process {['%.4f' % s for s in step_s[1:]]} "
+        f"s; the gradient all-reduce alone (gloo, CUDA tensors, "
+        f"{sum(g.numel() for g in grads.values()) * 4 / 1e6:.1f} MB) "
+        f"{['%.3f' % m for m in got['reduce_ms']]} ms; peak memory rank 0 "
+        f"{got['peak_gib']:.2f} GiB, 1 process {peak:.2f} GiB; ranks' wall {ranks_wall:.1f} s")
+    return {"worst_grad_rel_l2": worst[0], "whole_grad_rel_l2": whole,
+            "worst_grad_rel_l2_split": worst_split[0], "step_s_two_ranks": got["step_s"],
+            "step_s_one_process": step_s[1:], "all_reduce_ms": got["reduce_ms"]}
+
+
+def data_parallel_phase(out_root, smi):
+    """Phase 22 (c): the inference CLI's ``--data_parallel`` on path A's
+    preset in bf16 (random weights as a ``.pth`` beside its config) over
+    phase 20's generated DAVIS sequences, byte-equal to the serial CLI, its
+    clustering and lsap launches counted by the profiler; and
+    ``run_batch`` over ``["cuda:0", "cuda:0"]`` (two pipelines, two host
+    threads on one card) equal to ``run`` on two sequences, profiled.
+    Returns the launches of the two runs."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset, merge, save_config
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.inference.windows import get_subsequence_frames
+    from stemseg_tpu_torch.ops import launch_counts, lsap, reset_launch_counts
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    root = os.path.join(out_root, "DP")
+    env, sets = write_eval_datasets(os.path.join(root, "data"), shapes={})
+    cfg = merge(load_preset("davis_2"), {"clustering": {"min_seediness_prob": 0.05}})
+    model = build_random_model(cfg, synthetic_frames(2, 480, 854, MAIN_SEED), MAIN_SEED)
+    pth = os.path.join(root, "model", "davis.pth")
+    os.makedirs(os.path.dirname(pth))
+    torch.save({"model": model.state_dict()}, pth)
+    save_config(cfg, os.path.join(root, "model", "config.yaml"))
+    del model
+    torch.cuda.empty_cache()
+    n_windows = sum(len(get_subsequence_frames(
+        len(s["image_paths"]), cfg.input.num_frames, cfg.data.davis.inference_frame_overlap))
+        for s in sets["davis"])
+
+    prev_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    outs, launches, walls = {}, {}, {}
+    try:
+        for name, extra in (("serial", []), ("data_parallel", ["--data_parallel"])):
+            outs[name] = os.path.join(root, name)
+
+            def run(extra=extra, out=outs[name]):
+                Timer.reset()
+                reset_launch_counts()
+                lsap.reset_launch_counts()
+                cli.main([pth, "-o", out, "--dataset", "davis", "--bf16", *extra])
+
+            t0 = time.perf_counter()
+            if name == "data_parallel":
+                launches[name] = profiled_launches(
+                    run, lambda: {"cluster_kernel": n_windows, "lsa_kernel": n_windows},
+                    "(c) --data_parallel")
+                host = dict(launch_counts, **lsap.launch_counts)
+                if host["cluster_points_reference"] or host["lsa_masked_reference"] \
+                        or not host["cluster_points_tiled"] or not host["lsa_masked"]:
+                    raise AssertionError(f"(c) --data_parallel host launches {host}")
+            else:
+                run()
+            walls[name] = time.perf_counter() - t0
+    finally:
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    n_files = 0
+    for dirpath, _, files in os.walk(os.path.join(outs["serial"], "results")):
+        for f in files:
+            rel = os.path.relpath(os.path.join(dirpath, f), outs["serial"])
+            with open(os.path.join(outs["serial"], rel), "rb") as a, \
+                    open(os.path.join(outs["data_parallel"], rel), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"(c) {rel} differs between the serial and the "
+                                         "--data_parallel CLI")
+            n_files += 1
+    if n_files != sum(len(s["image_paths"]) for s in sets["davis"]):
+        raise AssertionError(f"(c) {n_files} PNGs")
+    log(f"  (c) --data_parallel --bf16 over {torch.cuda.device_count()} card(s): {n_files} "
+        f"PNGs byte-equal to the serial CLI's; {n_windows} windows, device launches "
+        f"{launches['data_parallel']}; wall serial {walls['serial']:.3f} s, data parallel "
+        f"(profiled) {walls['data_parallel']:.3f} s")
+
+    # run_batch: two pipelines on one card, driven from two host threads
+    model = cli.load_model(cfg, pth, dtype=torch.bfloat16)
+    tg = make_track_generator(cfg, "davis", model, os.path.join(root, "rb"), use_fused=True)
+    seqs = [synthetic_frames(26, 480, 854, seed=MAIN_SEED),
+            synthetic_frames(30, 480, 854, seed=MAIN_SEED + 1)]
+    schedules = [tg._schedule(len(f), f.shape[1:3]) for f in seqs]
+    kw = dict(seediness_fg_threshold=tg.seediness_thresh, resize_hw=schedules[0][1])
+    want = [tg.fused.run(f, w, **kw) for f, (w, _) in zip(seqs, schedules)]
+    windows = [w for w, _ in schedules]
+    expect = sum(len(w) for w in windows)
+    got = {}
+
+    def batch():
+        got["out"] = tg.fused.run_batch(seqs, windows, ["cuda:0", "cuda:0"], **kw)
+
+    for attempt in ("first (slot 1 warms and captures)", "second (replays)"):
+        t0 = time.perf_counter()
+        launches[f"run_batch {attempt}"] = profiled_launches(
+            batch, lambda: {"cluster_kernel": expect, "lsa_kernel": expect},
+            f"(c) run_batch {attempt}")
+        for (wl, wc, wt, wf, _), (gl, gc, gt, gf, _) in zip(want, got["out"]):
+            if not (np.array_equal(wl, gl) and wc == gc and wt == gt
+                    and np.array_equal(wf, gf)):
+                raise AssertionError(f"(c) run_batch {attempt}: differs from run")
+        log(f"  (c) run_batch over cuda:0 x 2, {attempt}: labels, counts, lifetimes and fg "
+            f"masks equal to run on {[len(f) for f in seqs]} frames; device launches "
+            f"{launches[f'run_batch {attempt}']} ({time.perf_counter() - t0:.3f} s profiled)")
+    del tg, model
+    torch.cuda.empty_cache()
+    return {"cluster_points_single": 0,
+            "cluster_points_tiled": sum(v["cluster_kernel"] for v in launches.values()),
+            "lsa_masked": sum(v["lsa_kernel"] for v in launches.values())}
+
+
+def jax_session_phase(out_root):
+    """Phase 22 (d): phase 11's path T checkpoint at step 6 written as a
+    whole JAX SGD session (``write_jax_session`` with the config: momentum
+    as optax's trace, the schedule's count, ``MultiSteps``), restored by
+    ``--restore_session``: weights, momentum buffers and LR schedule bitwise
+    equal to resuming the ``.pth``; then 2 steps each, held bitwise."""
+    import shutil
+
+    import torch
+
+    from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
+
+    pth = find_latest_checkpoint(os.path.join(out_root, "T"))
+    step = int(os.path.basename(pth)[:6])
+    cfg = training_cfg("davis_1", step + 2)
+    ckpt = os.path.join(out_root, "T22_jax", f"{step:06d}.ckpt")
+    os.makedirs(os.path.dirname(ckpt))
+    t0 = time.perf_counter()
+    n_bytes = write_jax_session(pth, step, ckpt, cfg=training_cfg("davis_1", step))
+    log(f"  (d) {os.path.basename(pth)} as a whole JAX session: {n_bytes / 1e6:.1f} MB in "
+        f"{time.perf_counter() - t0:.3f} s")
+    os.makedirs(os.path.join(out_root, "T22_resume"))
+    shutil.copy(pth, os.path.join(out_root, "T22_resume"))
+    finals = {}
+    with DeterministicTraining() as det:
+        for kind, extra in (("pth", []), ("ckpt", ["--restore_session", ckpt])):
+            trainer = new_trainer(cfg, os.path.join(out_root, f"T22_{kind}_resume"
+                                                    if kind == "ckpt" else "T22_resume"), *extra)
+            opt = trainer.optimizer.state_dict()
+            finals[f"{kind}_restored"] = (cpu_state(trainer.model), {
+                i: s["momentum_buffer"].cpu() for i, s in opt["state"].items()},
+                trainer.scheduler.state_dict(), trainer.elapsed_iterations,
+                [g["lr"] for g in trainer.optimizer.param_groups])
+            trainer.start()
+            finals[kind] = cpu_state(trainer.model)
+            if trainer.elapsed_iterations != step + 2:
+                raise AssertionError(f"(d) {kind}: ended at {trainer.elapsed_iterations}")
+            del trainer
+            torch.cuda.empty_cache()
+    a, b = finals["pth_restored"], finals["ckpt_restored"]
+    if not (compare_states(a[0], b[0])[0] and a[1].keys() == b[1].keys()
+            and all(torch.equal(a[1][i], b[1][i]) for i in a[1]) and a[2] == b[2]
+            and a[3] == b[3] == step and a[4] == b[4]):
+        raise AssertionError(f"(d) the restored JAX session differs from the .pth: steps "
+                             f"{a[3]}/{b[3]}, lr {a[4]}/{b[4]}")
+    log(f"  (d) restored from the .ckpt: weights, {len(a[1])} momentum buffers, LR schedule "
+        f"(last_epoch {a[2]['last_epoch']}, lr {a[4][0]}) and step {step} bitwise equal to "
+        "the .pth's")
+    return hold_bitwise(f"(d) weights after steps {step + 1}-{step + 2}, .ckpt against .pth",
+                        finals["ckpt"], finals["pth"], det)
+
+
+def start_sustained(out_root):
+    """Phase 22 (e), started: ``tools.train_sustained`` on path T in bf16,
+    12 steps, SIGINT after step 6, the relaunch resuming (a subprocess,
+    beside (a) and (d), whose checks are numerical)."""
+    cmd = [sys.executable, "-m", "stemseg_tpu_torch.tools.train_sustained", "--model_dir",
+           os.path.join(out_root, "S22"), "--bf16", "--steps", "12", "--interrupt_at", "6",
+           "--k", "3", "--num_cpu_workers", str(TRAIN_WORKERS), "--timeout", "300"]
+    return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=dict(os.environ, PYTHONPATH=HERE)), time.perf_counter()
+
+
+def finish_sustained(out_root, started):
+    """Phase 22 (e), checked: exit 0, the steps stitched, the loss of the
+    last 3 steps below the first 3; its summary."""
+    proc, t0 = started
+    try:
+        out = proc.communicate(timeout=700)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(e) train_sustained exited {proc.returncode}:\n{out[-5000:]}")
+    with open(os.path.join(out_root, "S22", "sustained_summary.json")) as fh:
+        s = json.load(fh)
+    if not s["stitched"] or s["failures"]:
+        raise AssertionError(f"(e) summary {s}")
+    log(f"  (e) train_sustained --bf16 12 steps, SIGINT at 6 (beside (a) and (d)): checkpoint "
+        f"{os.path.basename(s['interrupted_checkpoint'])}, stitched; loss first {s['k']} "
+        f"{s['loss_first_k']:.5f}, last {s['k']} {s['loss_last_k']:.5f}; sessions " + "; ".join(
+            f"{x['steps']} steps, {x.get('steps_per_s', float('nan')):.3f} steps/s steady, "
+            f"loader wait first {x['first_step_wait_s']:.3f} s then mean "
+            f"{x.get('loader_wait_mean_s', float('nan')) * 1e3:.3f} ms, wall {x['wall_s']:.1f} s"
+            for x in s["sessions"]) + f"; tool wall {wall:.1f} s")
+    return {k: s[k] for k in ("loss_first_k", "loss_last_k", "sessions")}
+
+
+def dist_phase(out_root, smi):
+    """Phase 22: (b) and (c), timed, alone; then (e) in a subprocess beside
+    (a) and (d). Returns the launches of (c)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks of (b) need the card's memory
+    log("  (b) two gloo ranks sharing the card against one process")
+    two_rank_phase(out_root)
+    log("  (c) --data_parallel on path A in bf16; run_batch over cuda:0 x 2")
+    launches = data_parallel_phase(out_root, smi)
+    log("  (e) train_sustained, 12 bf16 steps, SIGINT at 6: started")
+    sustained = start_sustained(out_root)
+    try:
+        log("  (a) path T, 2 steps: the trainer at world 1 on NCCL against the plain trainer")
+        world_one_phase(out_root)
+        log("  (d) a whole JAX session restored by --restore_session")
+        jax_session_phase(out_root)
+    except BaseException:
+        # let the tool end (it stops its own trainer), then report what failed
+        proc = sustained[0]
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            proc.communicate(timeout=700)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        raise
+    finish_sustained(out_root, sustained)
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "stemseg_tpu_torch")):
         sys.stderr.write("chip_smoke: run it from the root of a checkout\n")
@@ -3460,6 +4062,11 @@ def main():
         t_phase = time.perf_counter()
         dilated_phase(smi)
         log(f"  phase 21: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 22: data parallelism (NCCL at world 1, two gloo ranks on one card, "
+            "--data_parallel, run_batch), a JAX session restored, a sustained bf16 run")
+        t_phase = time.perf_counter()
+        launches_dp = dist_phase(out_root, smi)
+        log(f"  phase 22: {time.perf_counter() - t_phase:.1f} s")
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
@@ -3470,7 +4077,8 @@ def main():
                         "C'": launches_c2, "T": launches_t, "R (profiled)": launches_r,
                         "A bf16": launches_a16, "C bf16": launches_c16, "T bf16": launches_t16,
                         "CLI .ckpt": launches_cli, "CLI .pth (profiled)": launches_cli_pth,
-                        **launches_eval}
+                        **launches_eval,
+                        "--data_parallel A bf16 + run_batch (profiled)": launches_dp}
     for path, numbers in fused.items():  # every window of these goes to the tiled kernel
         launches_by_path[f"{path} fused (profiled)"] = {
             "cluster_points_single": 0,
@@ -3510,4 +4118,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:  # a rank of phase 22 (b)
+        sys.path.insert(0, HERE)
+        two_rank_worker(sys.argv[2])
+    else:
+        main()

@@ -51,12 +51,20 @@ one representational difference is the IoU: float32 here, float64 on the
 host path; the two can disagree only where two assignments' total costs
 differ by less than float32's epsilon. Sequences shorter than T (a window
 with repeated frames) take the streaming path in the caller.
+
+Data parallel (``run_batch``, the inference CLI's ``--data_parallel``): one
+sequence per device, each through a pipeline of its own (a replica of the
+model, its own engine, device state and capture stream on that device),
+each driven from its own host thread; the JAX package's padding of a batch
+to one compile bucket is an XLA matter and has no counterpart.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Tuple
+import copy
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -491,6 +499,7 @@ class FusedSequencePipeline:
         self.states_made = 0  # device states made, and graphs captured, so far
         self.captures = 0
         self.stream: Optional[torch.cuda.Stream] = None
+        self._replicas: Dict[Tuple[int, torch.device], "FusedSequencePipeline"] = {}
         if engine.device.type == "cuda":
             from stemseg_tpu_torch.ops.cluster import prepare_records
 
@@ -608,3 +617,50 @@ class FusedSequencePipeline:
         multiclass = fetched[2][:t_total] if want_mc else kept_mc
         counts, lifetimes = track_stats(labels)
         return labels, counts, lifetimes, fg, multiclass
+
+    def replica(self, slot: int, device) -> "FusedSequencePipeline":
+        """The pipeline of ``run_batch``'s slot ``slot`` on ``device``: this one
+        for slot 0 on its own device, else (made once, then kept) one over a
+        copy of the model on ``device``, with its own engine, device state
+        and capture stream."""
+        device = torch.device(device)
+        if slot == 0 and device == self.engine.device:
+            return self
+        key = (slot, device)
+        pipe = self._replicas.get(key)
+        if pipe is None:
+            eng = self.engine
+            model = copy.deepcopy(eng.model).to(device)
+            pipe = FusedSequencePipeline(
+                InferenceEngine(eng.cfg, model, semseg_resize_scale=eng.semseg_resize_scale),
+                self.cluster_params, cluster_full_scale=self.cluster_full_scale)
+            self._replicas[key] = pipe
+        return pipe
+
+    def run_batch(self, frames_batch: Sequence, windows_batch: Sequence[List[List[int]]],
+                  devices: Sequence, **kwargs) -> List[tuple]:
+        """Data-parallel inference: sequence ``i`` runs on ``devices[i]``
+        through slot ``i``'s pipeline (``replica``), each driven from its own
+        host thread; a device may appear more than once.
+
+        :param frames_batch: per-sequence raw uint8 frames, as ``run`` takes
+        :param windows_batch: per-sequence window schedules
+        :param devices: one device per sequence
+        :param kwargs: ``run``'s options, the same for every sequence
+        :return: ``run``'s result per sequence, in input order; a
+            sequence's failure is raised
+        """
+        if not len(frames_batch) == len(windows_batch) == len(devices):
+            raise ValueError(f"{len(frames_batch)} sequences, {len(windows_batch)} schedules "
+                             f"and {len(devices)} devices")
+        pipes = [self.replica(i, d) for i, d in enumerate(devices)]
+
+        def one(pipe, frames, windows):
+            dev = pipe.engine.device
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                return pipe.run(frames, windows, **kwargs)
+
+        with ThreadPoolExecutor(max_workers=len(pipes)) as pool:
+            futures = [pool.submit(one, pipe, f, w)
+                       for pipe, f, w in zip(pipes, frames_batch, windows_batch)]
+            return [f.result() for f in futures]

@@ -1,6 +1,7 @@
 """Inference CLI: ``python -m stemseg_tpu_torch.inference.main CKPT -o DIR
 --dataset {davis,ytvis,kittimots} [--resize_embeddings] [--bf16]
-[--profile_clustering] [--profile DIR] [--save_vis] [--device cuda]``.
+[--profile_clustering] [--profile DIR] [--save_vis] [--data_parallel]
+[--device cuda]``.
 
 Per sequence: frame loading (the next sequence's frames are read while
 the current one runs) -> inference -> the dataset's writer (DAVIS PNGs,
@@ -33,6 +34,14 @@ to ``DIR/trace.json``; ``--save_vis`` has the DAVIS writer also write each
 frame with its tracks overlaid (``vis/<seq>/<t>.jpg``; the other writers
 take the flag and write none, as in the JAX package).
 
+``--data_parallel`` serves one sequence per device over every visible CUDA
+device (``torch.cuda.device_count()``; with ``--device cpu``,
+``CPU_DATA_PARALLEL`` replicas on the CPU): the sequences of at least
+``num_frames`` frames are grouped by raw frame size and run in chunks of
+the device count through ``FusedSequencePipeline.run_batch``, each chunk's
+whole run under the "inference" timer; the shorter ones take the streaming
+path after them. The writers run on the main thread, in that order.
+
 Config resolution: ``config.yaml`` beside the checkpoint if present, else
 the dataset's preset (``davis_2``, ``youtube_vis``, ``kitti_mots_2``); CLI
 overrides for the input dims and the minimum seediness. Weights load from a
@@ -47,7 +56,7 @@ from __future__ import annotations
 import argparse
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +67,7 @@ from stemseg_tpu_torch.utils.timer import Timer
 
 DATASET_PRESETS = {"davis": "davis_2", "ytvis": "youtube_vis", "kittimots": "kitti_mots_2"}
 FRAME_READERS = 4  # threads reading JPEGs
+CPU_DATA_PARALLEL = 2  # --data_parallel's replicas with --device cpu
 
 
 def load_inference_cfg(model_path: str, dataset: str, min_dim: Optional[int],
@@ -112,7 +122,8 @@ class TrackGenerator:
     def __init__(self, cfg: Config, dataset: str, model, output_generator,
                  max_tracks: int, seediness_thresh: float = 0.25,
                  frame_overlap: int = -1, resize_embeddings: bool = False,
-                 profile_clustering: bool = False, use_fused: bool = True):
+                 profile_clustering: bool = False, use_fused: bool = True,
+                 devices: Optional[Sequence] = None):
         """:param model: an ``STEmSegModel`` on its device; its compute dtype
             is the run's
         :param profile_clustering: keep a ``ClusterTimeLog`` of the windows'
@@ -120,7 +131,9 @@ class TrackGenerator:
             fused path has no window boundary to time, so this forces the
             streaming path
         :param use_fused: run sequences of at least ``num_frames`` frames
-            through ``FusedSequencePipeline``"""
+            through ``FusedSequencePipeline``
+        :param devices: serve those sequences data parallel, one per device
+            (``FusedSequencePipeline.run_batch``); needs the fused path"""
         from stemseg_tpu_torch.inference.chainer import OnlineChainer
         from stemseg_tpu_torch.inference.clustering import (
             ClusterParams,
@@ -176,6 +189,10 @@ class TrackGenerator:
 
             self.fused = FusedSequencePipeline(self.engine, self.cluster_params,
                                                cluster_full_scale=self.cluster_full_scale)
+        if devices is not None and self.fused is None:
+            raise ValueError("data-parallel serving runs the fused path, which "
+                             "--profile_clustering (or use_fused=False) turns off")
+        self.devices = list(devices) if devices is not None else None
         self.total_frames_processed = 0
 
     def _read_frames(self, sequence):
@@ -226,6 +243,18 @@ class TrackGenerator:
                               semseg_output_type=self.semseg_output_type,
                               resize_hw=resize_hw, fetch_multiclass=False)
 
+    @Timer.log_duration("inference")
+    def do_fused_batch(self, frames_list: List[np.ndarray], image_hw):
+        """A chunk of sequences of one frame size through ``run_batch``, one
+        per device: the whole run under the "inference" timer, as
+        ``do_fused``."""
+        schedules = [self._schedule(f.shape[0], image_hw) for f in frames_list]
+        return self.fused.run_batch(
+            frames_list, [windows for windows, _ in schedules], self.devices[:len(frames_list)],
+            seediness_fg_threshold=self.seediness_thresh,
+            semseg_output_type=self.semseg_output_type, resize_hw=schedules[0][1],
+            fetch_multiclass=False)
+
     @Timer.log_duration("postprocessing")
     def do_clustering(self, out):
         with torch.no_grad():
@@ -247,16 +276,54 @@ class TrackGenerator:
             result = self.do_clustering(out)
             labels, counts, lifetimes, _ = result
             multiclass = out["multiclass_masks"]
+        self._write(sequence, labels, counts, lifetimes, multiclass, len(frames), max_tracks)
+        return result
+
+    def _write(self, sequence, labels, counts, lifetimes, multiclass, n_frames: int,
+               max_tracks: int):
         self.output_generator.process_sequence(
             sequence, labels, counts, lifetimes, multiclass, mask_scale=4,
             max_tracks=max_tracks, min_dim=self.cfg.input.min_dim,
             max_dim=self.cfg.input.max_dim)
-        self.total_frames_processed += len(frames)
-        return result
+        self.total_frames_processed += n_frames
+
+    def _start_data_parallel(self, todo) -> None:
+        """Sequences of at least ``num_frames`` frames grouped by raw frame
+        size, in chunks of the device count, through ``do_fused_batch``; the
+        shorter ones after them, one by one on the streaming path."""
+        groups: Dict[tuple, list] = {}
+        shorts = []
+        for s in todo:
+            if len(s) >= self.cfg.input.num_frames:
+                groups.setdefault(tuple(s.image_dims), []).append(s)
+            else:
+                shorts.append(s)
+        n_dev, done = len(self.devices), 0
+        for seqs in groups.values():
+            for i in range(0, len(seqs), n_dev):
+                chunk = seqs[i:i + n_dev]
+                loaded = [self._read_frames(s) for s in chunk]
+                print(f"Performing inference for sequences {done + 1}-{done + len(chunk)}/"
+                      f"{len(todo)} ({len(chunk)}-way data parallel)")
+                results = self.do_fused_batch([f for f, _ in loaded], loaded[0][1])
+                for seq, (frames, _), (labels, counts, lifetimes, _, mc) in zip(
+                        chunk, loaded, results):
+                    self._write(seq, labels, counts, lifetimes, mc, len(frames),
+                                self.max_tracks)
+                done += len(chunk)
+        for i, s in enumerate(shorts):
+            print(f"Performing inference for sequence {done + i + 1}/{len(todo)} "
+                  "(short, per-sequence)")
+            frames, image_hw = self._read_frames(s)
+            self._process_loaded(s, frames, image_hw, self.max_tracks)
 
     def start(self, sequences, seqs_to_process: Optional[List[str]] = None):
         todo = [s for s in sequences
                 if not seqs_to_process or str(s.id) in seqs_to_process]
+        if self.devices is not None:
+            self._start_data_parallel(todo)
+            self.print_fps_report()
+            return
         # one thread reads the next sequence's frames while this one runs
         with ThreadPoolExecutor(max_workers=1) as prefetcher:
             pending = prefetcher.submit(self._read_frames, todo[0]) if todo else None
@@ -315,6 +382,10 @@ def main(argv=None):
     parser.add_argument("--profile", metavar="DIR", required=False,
                         help="write a torch.profiler chrome trace of the whole run "
                              "to DIR/trace.json")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="serve one sequence per device over every visible CUDA "
+                             "device (fused path, run_batch); sequences are grouped "
+                             "by raw frame size")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain versions of "
                              "the kernels")
@@ -361,12 +432,17 @@ def main(argv=None):
 
     model = load_model(cfg, args.model_path, device=args.device,
                        dtype=torch.bfloat16 if args.bf16 else None)
+    devices = None
+    if args.data_parallel:
+        devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                   if next(model.parameters()).is_cuda else ["cpu"] * CPU_DATA_PARALLEL)
     generator = TrackGenerator(cfg, args.dataset, model, output_generator,
                                args.max_tracks or max_tracks,
                                seediness_thresh=args.seediness_thresh,
                                frame_overlap=args.frame_overlap,
                                resize_embeddings=args.resize_embeddings,
-                               profile_clustering=args.profile_clustering)
+                               profile_clustering=args.profile_clustering,
+                               devices=devices)
     profiler = start_trace(generator.device) if args.profile else None
     try:
         generator.start(sequences, args.seqs)

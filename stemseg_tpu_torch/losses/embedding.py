@@ -20,11 +20,17 @@ All-zero instance rows (the collate's padding) are dropped before the
 per-instance work, which is what the JAX package's masking amounts to: it
 computes them and zeroes their terms. One loop step per sequence; N is 1
 per micro-step on one card.
+
+Data parallel: under the JAX mesh the normalisers are global (total
+instances and N over the whole batch). A rank passes ``world_counts``,
+which sums (instances, sequences) over the ranks; its terms are then its
+own sums over those global normalisers, so the sum of the ranks' terms, and
+of their gradients, is the loss of the global batch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,7 +93,8 @@ def _per_sequence(emb, bw, seed, masks, ignore, free_bandwidths
 
 
 def embedding_loss(embedding_map: torch.Tensor, masks: torch.Tensor,
-                   ignore_masks: torch.Tensor, params: EmbeddingLossParams
+                   ignore_masks: torch.Tensor, params: EmbeddingLossParams,
+                   world_counts: Optional[Callable[[int, int], Tuple[int, int]]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Batch embedding loss.
 
@@ -95,6 +102,8 @@ def embedding_loss(embedding_map: torch.Tensor, masks: torch.Tensor,
         (emb | var | seed)
     :param masks: [N, I, T, H, W] float instance masks (padded I axis)
     :param ignore_masks: [N, T, H, W] float
+    :param world_counts: ``(instances, sequences)`` of this batch -> their
+        sums over the data-parallel ranks; None: this batch is the whole one
     :return: (total weighted loss, dict of the three terms)
     """
     e = params.embedding_size
@@ -118,11 +127,14 @@ def embedding_loss(embedding_map: torch.Tensor, masks: torch.Tensor,
         smooth_sum = smooth_sum + terms[2]
         total_instances += terms[3]
 
+    n_sequences = masks.shape[0]
+    if world_counts is not None:
+        total_instances, n_sequences = world_counts(total_instances, n_sequences)
     if total_instances == 0:
         lovasz = smoothness = seediness = zero
     else:
         lovasz = lovasz_sum / total_instances
-        smoothness = smooth_sum / masks.shape[0]
+        smoothness = smooth_sum / n_sequences
         seediness = seed_sum / (total_instances + 1.0)
 
     total = (lovasz * params.weight_lovasz

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Sequence
@@ -87,7 +88,15 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, BuildResult]:
     return results
 
 
+_LOAD_LOCK = threading.Lock()  # one build even when threads ask together
+
+
 @functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(build([name])[name].path)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (built first if needed)."""
-    return ctypes.CDLL(build([name])[name].path)
+    with _LOAD_LOCK:
+        return _load(name)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -47,6 +48,14 @@ launch_counts = {"cluster_points_single": 0, "cluster_points_tiled": 0,
                  "cluster_points_reference": 0}
 
 
+_COUNT_LOCK = threading.Lock()  # run_batch's host threads launch concurrently
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        launch_counts[name] += 1
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
@@ -67,7 +76,7 @@ def cluster_points_reference(emb, bw, seed, fg, *, e_dims: int, max_instances: i
     """Eager PyTorch transcription of the JAX package's ``clustering._cluster``
     with the kernels' (labels, meta) outputs. Comparisons with the float
     thresholds happen in float32, as in JAX."""
-    launch_counts["cluster_points_reference"] += 1
+    _count("cluster_points_reference")
     dev = emb.device
     p = emb.shape[0]
     fg = fg.bool()
@@ -259,7 +268,7 @@ def cluster_points_single(emb, bw, seed, fg, **kwargs):
     if emb.device.type == "cpu":
         return cluster_points_reference(emb, bw, seed, fg, **kwargs)
     out = _launch(True, emb, bw, seed, fg, **kwargs)
-    launch_counts["cluster_points_single"] += 1
+    _count("cluster_points_single")
     return out
 
 
@@ -269,7 +278,7 @@ def cluster_points_tiled(emb, bw, seed, fg, **kwargs):
     if emb.device.type == "cpu":
         return cluster_points_reference(emb, bw, seed, fg, **kwargs)
     out = _launch(False, emb, bw, seed, fg, **kwargs)
-    launch_counts["cluster_points_tiled"] += 1
+    _count("cluster_points_tiled")
     return out
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +27,14 @@ MAX_SIDE = 1024  # csrc/lsap.cu kMaxSide
 
 # launches of the kernel's wrapper (the plain version counts its calls)
 launch_counts = {"lsa_masked": 0, "lsa_masked_reference": 0}
+
+
+_COUNT_LOCK = threading.Lock()  # run_batch's host threads launch concurrently
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        launch_counts[name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -109,7 +118,7 @@ def lsa_masked_reference(cost: torch.Tensor, row_valid: torch.Tensor, col_valid:
     """Plain PyTorch version, on any device: the JAX package's
     ``lsap.lsa_masked`` with its loops on the host. ``stats`` (a dict), if
     given, receives the step count (``_solve_square``)."""
-    launch_counts["lsa_masked_reference"] += 1
+    _count("lsa_masked_reference")
     r_dim, c_dim = cost.shape
     b = max(r_dim, c_dim)
     dev = cost.device
@@ -159,5 +168,5 @@ def lsa_masked(cost: torch.Tensor, row_valid: torch.Tensor,
                             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stemseg_lsa_masked failed to launch: CUDA error {err}")
-    launch_counts["lsa_masked"] += 1
+    _count("lsa_masked")
     return col4row, row4col

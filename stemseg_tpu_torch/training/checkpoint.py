@@ -6,8 +6,9 @@ A checkpoint is ``{iter:06d}.pth`` in the model dir, a ``torch.save`` of
 reads, so the inference CLI loads a trained checkpoint as it is. Files are
 read with ``weights_only=True``. ``cleanup_old_checkpoints`` keeps the
 newest ``keep`` files (the reference's glob never matched, so it kept all).
-A session is not restored from the JAX package's ``.ckpt``: its optimizer
-state is optax's (its weights alone load through ``--initial_ckpt``).
+A session of the JAX package's trainer (a ``.ckpt``) is restored too:
+its weights, its optax optimizer state and its LR schedule's count
+(``training/optax_state.py``).
 """
 
 from __future__ import annotations
@@ -34,12 +35,18 @@ def save_checkpoint(model_dir: str, step: int, model, optimizer, scheduler,
 
 def restore_checkpoint(path: str, model, optimizer, scheduler) -> Tuple[Dict[str, Any], int]:
     """Loads a session into ``model``, ``optimizer`` and ``scheduler`` in
-    place. :return: (extra, step)"""
+    place: one of this trainer's ``.pth`` files or a JAX trainer's ``.ckpt``.
+    A ``.ckpt`` that cannot be read raises ``ValueError`` naming it.
+    :return: (extra, step)"""
     if path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: a session of the JAX package holds optax optimizer state, which "
-            "this trainer does not read (ROADMAP A25); pass it as --initial_ckpt to "
-            "start from its weights")
+        from stemseg_tpu_torch.models.flax_msgpack import read_msgpack_file
+        from stemseg_tpu_torch.training.optax_state import restore_jax_session
+
+        try:
+            payload = read_msgpack_file(path)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
+        return restore_jax_session(payload, path, model, optimizer, scheduler)
     device = next(model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(ckpt["model"])

@@ -1,7 +1,8 @@
 """Training metrics logging and the wall-clock ETA.
 
 Scalars go to ``metrics.jsonl`` (always) and to tensorboardX when it can be
-imported; the console line uses the same abbreviations as the JAX
+imported; each optimizer step's end (wall clock) and the loader's wait
+before it go to ``steps.jsonl``; the console line uses the same abbreviations as the JAX
 package's logger. The ETA counts the time of earlier sessions too: the
 elapsed time goes into the checkpoint through ``state_dict``.
 """
@@ -31,6 +32,7 @@ class TrainingLogger:
         os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
         self.jsonl_path = os.path.join(log_dir, "metrics.jsonl")
+        self.steps_path = os.path.join(log_dir, "steps.jsonl")
 
         self._tb_writer = None
         try:
@@ -50,6 +52,13 @@ class TrainingLogger:
         if self._tb_writer is not None:
             for k, v in scalars.items():
                 self._tb_writer.add_scalar(k, float(v), step)
+
+    def add_step(self, step: int, loader_wait: float):
+        """One optimizer step ended now; the loader kept it waiting
+        ``loader_wait`` seconds (its micro-batches' waits summed)."""
+        with open(self.steps_path, "a") as fh:
+            fh.write(json.dumps({"step": step, "time": time.time(),
+                                 "loader_wait": loader_wait}) + "\n")
 
     def close(self):
         if self._tb_writer is not None:

@@ -17,6 +17,19 @@ The same composition as the JAX package's ``training/step.py``:
   clipping, weight decay and the LR act on that mean at the update;
   ``grad_norm`` is each micro-step's own gradient norm.
 
+Data parallel (a process group is initialised): each rank's loss terms are
+its share of the global batch's, so that their sum over the ranks is the
+loss of the global batch. The embedding loss takes the global instance
+count and batch size (``world_counts``, one small all-reduce a micro-step);
+the semseg CE and the fg BCE are means of per-sequence terms, so with
+equal per-rank batches the global mean is the mean of the ranks' means,
+and each rank's is divided by the world size. Each micro-step's gradient
+is summed over the ranks right after ``torch.autograd.grad``, together with
+the loss terms, before its norm and the running mean: as JAX's ``psum``
+inside each micro-step, before ``optax.MultiSteps`` averages them. So
+``grad_norm`` and the logged terms are the global batch's. The heads use
+FrozenBN and GroupNorm only: no batch statistics need syncing.
+
 Batch contract (device tensors): ``images`` [N, T, H, W, 3] float32,
 normalised, padded to /32; ``masks`` [N, I, T, H, W] uint8 (padded
 instance axis); ``ignore_masks`` [N, T, H, W] uint8; ``category_ids``
@@ -25,7 +38,7 @@ instance axis); ``ignore_masks`` [N, T, H, W] uint8; ``category_ids``
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -37,8 +50,10 @@ from stemseg_tpu_torch.losses import (
 )
 from stemseg_tpu_torch.models.embedding_utils import get_nb_free_dims
 from stemseg_tpu_torch.models.layers import resize_bilinear
+from stemseg_tpu_torch.parallel import all_reduce_sum_
 from stemseg_tpu_torch.training.optim import clip_by_global_norm_, global_norm
 from stemseg_tpu_torch.utils.constants import LossConsts
+from stemseg_tpu_torch.utils.distributed import all_reduce_ints, get_world_size, is_initialized
 
 
 def _downscale_binary(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -61,9 +76,14 @@ def prepare_targets(masks: torch.Tensor, ignore_masks: torch.Tensor,
     return masks_ds, ignore_ds, semseg_labels(masks_ds, category_ids)
 
 
-def make_output_loss_fn(cfg) -> Callable:
+def make_output_loss_fn(cfg, world_counts: Optional[Callable] = None,
+                        world_size: int = 1) -> Callable:
     """The loss composition after the network forward: ``(out, batch) ->
-    (total, metrics)``."""
+    (total, metrics)``.
+
+    :param world_counts: the embedding loss's sum of (instances, sequences)
+        over the data-parallel ranks; None for one process
+    :param world_size: the ranks; the CE and fg BCE are divided by it"""
     lcfg = cfg.training.losses
     emb_params = EmbeddingLossParams(
         embedding_size=cfg.model.embeddings.embedding_size,
@@ -88,16 +108,17 @@ def make_output_loss_fn(cfg) -> Callable:
         else:
             labels = semseg_labels(masks, batch["category_ids"])
 
-        total, metrics = embedding_loss(out["embeddings"].float(), masks, ignore, emb_params)
+        total, metrics = embedding_loss(out["embeddings"].float(), masks, ignore, emb_params,
+                                        world_counts=world_counts)
         metrics[LossConsts.EMBEDDING] = total
         if use_semseg:
             logits = out["semseg_masks"].float()
             if fg_channel:
                 logits, fg_logits = logits[:, :-1], logits[:, -1]
-                fg = foreground_bce(fg_logits, (labels > 0).float(), ignore)
+                fg = foreground_bce(fg_logits, (labels > 0).float(), ignore) / world_size
                 total = total + fg
                 metrics[LossConsts.FOREGROUND] = fg
-            ce = semseg_cross_entropy(logits, labels, ignore)
+            ce = semseg_cross_entropy(logits, labels, ignore) / world_size
             total = total + ce * lcfg.weight_semseg
             metrics[LossConsts.SEMSEG] = ce
         metrics["total"] = total
@@ -112,7 +133,8 @@ class TrainStep:
     into the running mean in ``.grad``; after ``accumulate_steps`` calls,
     clip (``training.clip_gradients``), ``optimizer.step()``,
     ``scheduler.step()`` and clear the gradients. Returns the micro-step's
-    metrics as 0-d device tensors."""
+    metrics as 0-d device tensors. With a process group initialised, the
+    gradient and the metrics are summed over the ranks (module docstring)."""
 
     def __init__(self, model, cfg, optimizer, scheduler, accumulate_steps: int = 1):
         self.model = model
@@ -120,7 +142,14 @@ class TrainStep:
         self.scheduler = scheduler
         self.accumulate_steps = accumulate_steps
         self.params = [p for group in optimizer.param_groups for p in group["params"]]
-        self.loss_fn = make_output_loss_fn(cfg)
+        self.distributed = is_initialized()
+        if self.distributed:
+            device = next(model.parameters()).device
+            self.loss_fn = make_output_loss_fn(
+                cfg, world_counts=lambda *counts: all_reduce_ints(counts, device),
+                world_size=get_world_size())
+        else:
+            self.loss_fn = make_output_loss_fn(cfg)
         self.clip = cfg.training.clip_gradients
         self.micro_step = 0
 
@@ -152,6 +181,9 @@ class TrainStep:
         grads = torch.autograd.grad(total, self.params, allow_unused=True,
                                     materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.distributed:  # (terms may share storage: "total" is the embedding loss's)
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            all_reduce_sum_([*grads, *metrics.values()])
         metrics["grad_norm"] = global_norm(grads)
         self.accumulate(grads)
         self.update()

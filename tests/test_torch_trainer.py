@@ -15,8 +15,8 @@ two share a contract:
 * ``--profile`` writes a trace; ``mixed_precision`` trains in bf16 with
   float32 weights; ``--initial_ckpt`` and the inference CLI's loader read a
   JAX ``.ckpt`` to the weights of the ``.pth``; ``--restore_session`` of a
-  JAX ``.ckpt`` raises, and so do the real-data modes without their
-  datasets; the loader re-raises a worker's error and shuts its workers
+  truncated JAX ``.ckpt`` raises, and so do the real-data modes without
+  their datasets; the loader re-raises a worker's error and shuts its workers
   down.
 """
 
@@ -269,15 +269,16 @@ def test_profile_writes_a_trace(tmp_path):
 @pytest.mark.parametrize("case", ["davis", "youtube_vis", "kitti_mots",
                                   "restore_session_jax_ckpt"])
 def test_what_is_not_ported_raises(tmp_path, case, monkeypatch):
-    """What the port lacks raises: a session of the JAX package (optax
-    state) is not restored; the real-data modes (ported) raise only without
-    their datasets, naming the first environment variable they read."""
+    """What cannot be read raises: a truncated JAX session (``.ckpt``) given
+    to ``--restore_session`` raises a ``ValueError`` naming the file; the
+    real-data modes raise only without their datasets, naming the first
+    environment variable they read."""
     over = copy.deepcopy(TRAIN_SMALL)
     extra = []
-    error, match = NotImplementedError, "ROADMAP A25"
     if case == "restore_session_jax_ckpt":
-        (tmp_path / "w.ckpt").write_bytes(b"\x80")
+        (tmp_path / "w.ckpt").write_bytes(b"\x83\xa5state\x80")  # a map of 3, cut after one
         extra = ["--restore_session", str(tmp_path / "w.ckpt")]
+        error, match = ValueError, "w.ckpt: msgpack data ends inside an object"
     else:
         over["training"]["mode"] = case
         over["input"]["num_classes"] = {"davis": 2, "youtube_vis": 41, "kitti_mots": 3}[case]
