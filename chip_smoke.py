@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``stemseg_tpu_torch``) on one CUDA GPU.
+"""Smoke run of the PyTorch port (``stemseg_tpu_torch``) on one CUDA GPU,
+and (``--four-cards``) its data parallelism on four.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each of
 which raises on failure (the script then exits non-zero):
@@ -180,6 +181,36 @@ which raises on failure (the script then exits non-zero):
    step 6: resumed, stitched, the loss falling, steps/s and loader waits.
    (b) and (c) run first, alone; (e) runs in a subprocess beside (a) and
    (d), whose checks are numerical.
+23. data parallelism on four cards, run alone by ``python3 chip_smoke.py
+   --four-cards`` on a host with four cards (it exits non-zero, before it
+   builds anything, where there are fewer; the default run prints a line
+   saying so and runs none of it). After the build: on each card the
+   clustering kernels and ``lsa_masked`` against their plain version, each
+   workspace on its own card; (a) path T through the trainer CLI as users
+   launch it, ``python -m torch.distributed.run --standalone
+   --nproc_per_node 4 -m stemseg_tpu_torch.training.main`` (NCCL, the CLI's
+   8 loader workers a rank), 4 steps: a SIGINT to rank 2 after step 2 stops
+   every rank after one step, rank 0 alone saves, a relaunch resumes and
+   reaches step 4, the logs stitched; (b) four ranks of ``--card-worker``
+   (one a card, NCCL): the first micro-step's loss terms and gradient
+   against one process on the first card at ``max_samples_per_chip`` 4 over
+   the same clips (terms within 1e-4, the whole gradient within a relative
+   L2 of 1e-3, the worst leaf printed) and against those clips one at a
+   time (``per_clip_reference``: terms within 1e-6, every leaf within
+   1e-4), every rank's weights bitwise equal to rank 0's after 2 steps and
+   within 1e-3 per leaf of the one-process run's; (c) 24 steps in bf16 at
+   world 4, losses finite, ranks bitwise equal; (d) the inference CLI's
+   ``--data_parallel`` with ``davis_2`` in bf16 on 8 generated DAVIS
+   sequences of 480x854 (the lengths of DAVIS 2017 val's first 8): the
+   chunks, PNGs byte-equal to the serial CLI's, the kernels' launches on
+   each card from the profiler's device index, and ``run_batch`` over the
+   four cards equal to ``run``; (e) the numbers: the gradient's NCCL
+   all-reduce and the small int one, s a step and clips/s at world 1 (the
+   preset) and 4 in fp32 and bf16, each rank's loader waits after the
+   workers' first queue, peak memory a rank, and ``--data_parallel``'s wall
+   against the serial CLI's split into frame reads, fused runs and writer
+   calls, beside every card's name, power limit and ``nvidia-smi topo -m``.
+   Every part runs, and the phase fails after them if any failed.
 
 Phases 4-18 run the streaming path (``use_fused=False``), so their layer
 splits stay comparable; the inference CLI in phases 14 and 18 runs its
@@ -194,9 +225,10 @@ weights the fg logit of the semseg head has one sign over whole frames, so
 the semseg paths first centre it (``centre_fg_logit``).
 
 The last three lines are the kernel table as JSON, the card's name and
-power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
-Without a CUDA device, or outside a checkout, it exits non-zero and prints
-no result.
+power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``;
+``--four-cards`` ends with phase 23's numbers as JSON, each card's
+nvidia-smi line and the same last line. Without a CUDA device, or outside
+a checkout, it exits non-zero and prints no result.
 """
 
 import contextlib
@@ -3565,6 +3597,38 @@ def two_rank_worker(spec_path):
     torch.distributed.destroy_process_group()
 
 
+def per_clip_reference(model, cfg, batch, world):
+    """Phases 22 and 23 (b)(ii): a global batch of ``world`` clips (device
+    tensors) one clip at a time in one process, each clip's loss over the
+    whole batch's normalisers (its instance count and ``world`` sequences;
+    the CE and fg BCE divided by ``world``), as a rank that holds the clip
+    computes it; the gradients and the loss terms summed over the clips.
+    Returns ({trainable parameter name: gradient on the CPU}, {loss term:
+    float})."""
+    import torch
+
+    from stemseg_tpu_torch.training.loader import DEVICE_KEYS
+    from stemseg_tpu_torch.training.step import make_output_loss_fn, prepare_targets
+
+    masks = batch["masks"].float()
+    if not cfg.training.loss_at_full_res:
+        masks = prepare_targets(masks, batch["ignore_masks"].float(), batch["category_ids"])[0]
+    n_instances = int((masks.flatten(2).amax(2) > 0).sum())
+    loss_fn = make_output_loss_fn(cfg, world_counts=lambda n, s: (n_instances, world),
+                                  world_size=world)
+    params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    grads, terms = {n: 0.0 for n, _ in params}, {}
+    for i in range(world):
+        clip = {k: batch[k][i:i + 1] for k in DEVICE_KEYS}
+        loss, metrics = loss_fn(model(clip["images"].permute(0, 1, 4, 2, 3)), clip)
+        for (n, _), g in zip(params, torch.autograd.grad(
+                loss, [p for _, p in params], allow_unused=True, materialize_grads=True)):
+            grads[n] = grads[n] + g.detach().cpu()
+        for k, v in metrics.items():
+            terms[k] = terms.get(k, 0.0) + float(v.detach())
+    return grads, terms
+
+
 def two_rank_phase(out_root):
     """Phase 22 (b): two gloo ranks sharing the card at ``per_chip`` 1
     against one process on the same global batch: (i) at ``per_chip`` 2,
@@ -3579,33 +3643,18 @@ def two_rank_phase(out_root):
     import torch
 
     from stemseg_tpu_torch.config import merge
-    from stemseg_tpu_torch.training.loader import DEVICE_KEYS, to_device
-    from stemseg_tpu_torch.training.step import TrainStep, make_output_loss_fn, prepare_targets
+    from stemseg_tpu_torch.training.loader import to_device
+    from stemseg_tpu_torch.training.step import TrainStep
 
     model_dir = os.path.join(out_root, "T22_ranks")
     spec = {"model_dir": model_dir, "out": os.path.join(out_root, "T22_ranks.pt")}
     spec_path = os.path.join(out_root, "T22_ranks.json")
     with open(spec_path, "w") as fh:
         json.dump(spec, fh)
-    port = free_port()
+    os.makedirs(model_dir + "_logs")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
-                               spec_path], env=dict(os.environ, **rank_env(r, 2, port)),
-                              cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        raise AssertionError("phase 22 (b): a rank failed:\n" + "\n".join(
-            f"rank {r} exit {p.returncode}:\n{out[-3000:]}"
-            for r, (p, out) in enumerate(zip(procs, outs))))
+    run_ranks([sys.executable, os.path.abspath(__file__), "--rank-worker", spec_path], 2,
+              model_dir + "_logs", env_of=rank_env, timeout=300)
     ranks_wall = time.perf_counter() - t0
     got = torch.load(spec["out"], weights_only=True)
 
@@ -3623,18 +3672,7 @@ def two_rank_phase(out_root):
     trainer.optimizer.zero_grad(set_to_none=True)
 
     # (ii): the ranks' shapes in one process
-    halves = [{k: first[k][i:i + 1] for k in DEVICE_KEYS} for i in range(2)]
-    total = sum(int((prepare_targets(h["masks"].float(), h["ignore_masks"].float(),
-                                     h["category_ids"])[0].flatten(2).amax(2) > 0).sum())
-                for h in halves)
-    loss_fn = make_output_loss_fn(cfg, world_counts=lambda n, s: (total, 2), world_size=2)
-    split_grads, split_metrics = {n: 0.0 for n, _ in params}, {}
-    for h in halves:
-        loss, terms = loss_fn(trainer.model(h["images"].permute(0, 1, 4, 2, 3)), h)
-        for (n, _), g in zip(params, torch.autograd.grad(loss, [p for _, p in params])):
-            split_grads[n] = split_grads[n] + g.detach().cpu()
-        for k, v in terms.items():
-            split_metrics[k] = split_metrics.get(k, 0.0) + float(v.detach())
+    split_grads, split_metrics = per_clip_reference(trainer.model, cfg, first, 2)
 
     step_s = []
     for _ in range(3):
@@ -3645,7 +3683,7 @@ def two_rank_phase(out_root):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    del trainer, probe, halves, first
+    del trainer, probe, first
     torch.cuda.empty_cache()
 
     for k, v in metrics.items():
@@ -3915,6 +3953,968 @@ def dist_phase(out_root, smi):
     return launches
 
 
+# -- phase 23: data parallelism on four cards (``--four-cards``) --------------
+
+FOUR_CARDS = 4  # the cards of one host that phase 23 needs
+CLI_WORKERS = 8  # the trainer CLI's --num_cpu_workers default, kept on every rank
+WORLD_STEPS = 24  # a world-4 timing run: the workers' first queue (16 batches), then 8
+ONE_CARD_STEPS = 14  # one process at the preset (2 micro-steps a step): 8 in the queue, 6
+PHASE23_TIMEOUT = 360  # seconds a subprocess of phase 23 may take
+
+
+def card_env(rank, world, port):
+    """The variables torchrun gives rank ``rank`` of ``world`` on one host:
+    each rank on its own card, ``cuda:rank``."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(rank),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def card_worker_argv(spec_path):
+    """The command of one rank of phase 23 (b), (c) and (e)."""
+    return [sys.executable, os.path.abspath(__file__), "--card-worker", spec_path]
+
+
+def stop_group(proc):
+    """Kills what is left of ``proc``'s process group (its loader workers
+    included)."""
+    import signal
+
+    with contextlib.suppress(ProcessLookupError, PermissionError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def run_ranks(argv, world, log_dir, env_of=card_env, timeout=PHASE23_TIMEOUT):
+    """Runs ``world`` processes of ``argv`` as one process group (rank
+    ``r``'s variables ``env_of(r, world, port)``), each in a session of its
+    own with its output in ``log_dir/rank<r>.log``. When one exits non-zero,
+    or the time is up, every one is killed. Returns their outputs; raises
+    unless every rank exited 0."""
+    port = free_port()
+    logs = [open(os.path.join(log_dir, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(argv, env=dict(os.environ, **env_of(r, world, port)), cwd=HERE,
+                              stdout=logs[r], stderr=subprocess.STDOUT, start_new_session=True)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            stop_group(p)
+        for f in logs:
+            f.close()
+    outs = []
+    for r in range(world):
+        with open(os.path.join(log_dir, f"rank{r}.log")) as fh:
+            outs.append(fh.read())
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("ranks failed or ran past their time:\n" + "\n".join(
+            f"rank {r} exit {p.returncode}:\n{out[-3000:]}"
+            for r, (p, out) in enumerate(zip(procs, outs))))
+    return outs
+
+
+def differ_from_rank0(model):
+    """Names of ``model``'s parameters and buffers on this rank that are not
+    bitwise equal to rank 0's (broadcast one tensor at a time)."""
+    import torch
+    import torch.distributed as dist
+
+    differ = []
+    for name, t in (*model.named_parameters(), *model.named_buffers()):
+        theirs = t.detach().clone()
+        dist.broadcast(theirs, src=0)
+        if not torch.equal(theirs, t.detach()):
+            differ.append(name)
+    return differ
+
+
+def timed_trainer_run(cfg, model_dir, workers, device):
+    """A trainer run of ``cfg`` on ``device`` (under a process group, each
+    rank's own card) with ``workers`` loader workers. Returns the trainer
+    and its seconds a step after the workers' first queue (``2 * workers``
+    micro-batches), the loader's wait per micro-batch after it, and peak
+    device memory."""
+    import math
+
+    import torch
+
+    trainer = new_trainer(cfg, model_dir, "--num_cpu_workers", str(workers), "--device", device)
+    dev = trainer.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    trainer.start()
+    queue = 2 * workers
+    intervals = steady_intervals(trainer, math.ceil(queue / trainer.accumulate_steps))
+    out = {"steps": trainer.elapsed_iterations, "accumulate_steps": trainer.accumulate_steps,
+           "s_per_step": intervals, "first_wait_s": trainer.loader_waits[0],
+           "waits_ms": [w * 1e3 for w in trainer.loader_waits[queue:]],
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30
+           if dev.type == "cuda" else 0.0}
+    return trainer, out
+
+
+def card_rank_worker(spec_path):
+    """One rank of phase 23 (b), (c) and (e), started by ``card_ranks_phase``
+    on its own card (NCCL, ``cuda:RANK``), path T at ``max_samples_per_chip``
+    1: its device and its model's on that card; the gradient bucket's
+    all-reduce alone (as the step makes it, and one flat ``dist.all_reduce``)
+    and the small int all-reduce, timed; the first micro-step's loss terms
+    and gradient (summed over the ranks); 2 optimizer steps, after which
+    every tensor equals rank 0's bit for bit; then a timed fp32 run and a
+    timed bf16 run (``training.mixed_precision``) of ``WORLD_STEPS`` steps
+    each with the CLI's loader workers, every loss finite and every tensor
+    equal to rank 0's after each. Each rank saves its numbers as
+    ``out.RANK``; rank 0 adds the gradient and its weights."""
+    import torch
+    import torch.distributed as dist
+
+    from stemseg_tpu_torch.config import merge
+    from stemseg_tpu_torch.parallel import all_reduce_sum_
+    from stemseg_tpu_torch.training.loader import to_device
+    from stemseg_tpu_torch.training.step import TrainStep
+    from stemseg_tpu_torch.utils.distributed import all_reduce_ints, synchronize
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    world, root, device = spec["world"], spec["root"], spec["device"]
+    trainer = new_trainer(training_cfg("davis_1", 3), os.path.join(root, "T23_probe"),
+                          "--device", device)
+    rank, dev = trainer.rank, trainer.device
+    cuda = dev.type == "cuda"
+    want = ((world, "nccl", torch.device("cuda", rank)) if cuda
+            else (world, "gloo", torch.device("cpu")))
+    placed = [n for n, t in (*trainer.model.named_parameters(), *trainer.model.named_buffers())
+              if t.device != dev]
+    if (trainer.world, dist.get_backend(), dev) != want or placed \
+            or (cuda and torch.cuda.current_device() != rank):
+        raise AssertionError(f"rank {rank}: world {trainer.world}, backend "
+                             f"{dist.get_backend()}, device {dev}, {len(placed)} tensors "
+                             f"elsewhere {placed[:3]}")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        synchronize()
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3, result
+
+    out = {"rank": rank, "device": str(dev)}
+    params = [p for p in trainer.model.parameters() if p.requires_grad]
+    bucket_ms, flat_ms, ints_ms = [], [], []
+    for _ in range(6):
+        bucket = [torch.ones_like(p) for p in params]
+        bucket_ms.append(timed(lambda: all_reduce_sum_(bucket))[0])
+        if not all(bool((b == world).all()) for b in bucket):
+            raise AssertionError(f"rank {rank}: the bucket's all-reduce did not sum {world} "
+                                 "ranks")
+    del bucket
+    flat = torch.empty(sum(p.numel() for p in params), device=dev)
+    for _ in range(6):
+        flat.fill_(1.0)
+        flat_ms.append(timed(lambda: dist.all_reduce(flat))[0])
+        if not bool((flat == world).all()):
+            raise AssertionError(f"rank {rank}: the flat all-reduce did not sum {world} ranks")
+    del flat
+    for _ in range(21):
+        ms, got = timed(lambda: all_reduce_ints([rank, 1], dev))
+        ints_ms.append(ms)
+        if got != (world * (world - 1) // 2, world):
+            raise AssertionError(f"rank {rank}: all_reduce_ints gave {got}")
+    out.update(bucket_mb=sum(p.numel() * p.element_size() for p in params) / 1e6,
+               all_reduce_bucket_ms=bucket_ms[1:], all_reduce_flat_ms=flat_ms[1:],
+               all_reduce_ints_ms=ints_ms[1:])
+
+    # (b): the first micro-step (a probe that does not update), then 2 steps
+    batches = iter(trainer.make_loader(0))
+    probe = TrainStep(trainer.model, trainer.cfg, trainer.optimizer, trainer.scheduler,
+                      accumulate_steps=2)
+    out["metrics"] = {k: float(v) for k, v in probe(to_device(next(batches), dev)).items()}
+    if rank == 0:
+        out["grads"] = {n: p.grad.detach().cpu().clone()
+                        for n, p in trainer.model.named_parameters() if p.requires_grad}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    out["step_s"] = []
+    for _ in range(2):
+        ms, _ = timed(lambda: [trainer.train_step(to_device(next(batches), dev))
+                               for _ in range(trainer.accumulate_steps)])
+        out["step_s"].append(ms / 1e3)
+    out["differ"] = {"2 steps": differ_from_rank0(trainer.model)}
+    if rank == 0:
+        out["state"] = cpu_state(trainer.model)
+    out["peak_gib_probe"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    del trainer, probe, batches
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) and (e): timed runs with the CLI's loader workers, fp32 then bf16
+    for kind, over in (("fp32", {}), ("bf16", {"mixed_precision": True})):
+        cfg = merge(training_cfg("davis_1", WORLD_STEPS), {"training": over})
+        trainer, out[kind] = timed_trainer_run(cfg, os.path.join(root, f"T23_{kind}"),
+                                               spec["workers"], device)
+        out["differ"][kind] = differ_from_rank0(trainer.model)
+        if rank == 0:
+            out[kind]["losses"] = [r["total"] for r in read_metrics(trainer.model_dir,
+                                                                     DIST_KEYS)]
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+    torch.save(out, f"{spec['out']}.{rank}")
+    dist.destroy_process_group()
+
+
+# the first convolution of each trunk block of the heads: its weight
+# gradient sums over a whole FPN map (a GroupNorm after it), and cuDNN's float32
+# algorithm for it differs by batch size (phase 23 (b))
+TRUNK_FIRST_CONVS = tuple(f"{head}.block_{s}.0" for head in ("embedding_head", "seediness_head")
+                          for s in ("32x", "16x", "8x", "4x"))
+
+
+def exact_weight_grads(model, names, run):
+    """Runs ``run()`` (one forward and backward of ``model``) with the input
+    and output gradient of each 3D convolution of ``names`` recorded, and
+    returns ({name + ".weight": its weight gradient recomputed from them in
+    float64, on the CPU}, what ``run`` returned)."""
+    import torch
+
+    modules = dict(model.named_modules())
+    names = [n for n in names if n in modules]
+    saved, hooks = {}, []
+    for n in names:
+        hooks.append(modules[n].register_forward_hook(
+            lambda mod, inp, out, n=n: saved.__setitem__((n, "x"), inp[0].detach())))
+        hooks.append(modules[n].register_full_backward_hook(
+            lambda mod, gin, gout, n=n: saved.__setitem__((n, "dy"), gout[0].detach())))
+    try:
+        result = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    exact = {}
+    for n in names:
+        m, x, dy = modules[n], saved.pop((n, "x")), saved.pop((n, "dy"))
+        exact[n + ".weight"] = torch.nn.grad.conv3d_weight(
+            x.double(), m.weight.shape, dy.double(), stride=m.stride, padding=m.padding,
+            dilation=m.dilation, groups=m.groups).cpu()
+        del x, dy
+    return exact, result
+
+
+def card_ranks_phase(root, world, device="cuda"):
+    """Phase 23 (b), (c) and (e) of training: ``world`` ranks of
+    ``card_rank_worker``, then in this process on the first card path T at
+    ``max_samples_per_chip`` ``world`` over the same clips (the same global
+    stream): (i) its first micro-step's loss terms within 1e-4 relative of
+    the ranks'; its whole gradient within a relative L2 of 1e-3 of the
+    ranks', with the weight gradients of ``TRUNK_FIRST_CONVS`` recomputed
+    in float64 from this run's own inputs and output gradients (cuDNN's
+    float32 algorithm for them at a batch of 4 clips is off float64 by more
+    than the ranks' at 1 clip), the raw float32 difference, the worst leaf
+    and each of those leaves against float64 printed; (ii) the same clips
+    one at a time (``per_clip_reference``, the ranks' shapes): loss terms
+    within 1e-6, every leaf within 1e-4; after 2 optimizer steps the
+    weights within a per-leaf relative L2 of 1e-3 of rank 0's, every rank's
+    bitwise equal to rank 0's after every run; (c) the bf16 losses finite;
+    and one process at the preset (2 micro-steps of 1 clip) timed as the
+    ranks are. Every number is printed before a check raises. Returns the
+    numbers."""
+    import math
+
+    import torch
+
+    from stemseg_tpu_torch.config import merge
+    from stemseg_tpu_torch.training.loader import to_device
+    from stemseg_tpu_torch.training.step import TrainStep
+
+    log_dir = os.path.join(root, "T23_ranks")
+    os.makedirs(log_dir)
+    spec = {"world": world, "root": root, "out": os.path.join(log_dir, "out.pt"),
+            "workers": CLI_WORKERS, "device": device}
+    spec_path = os.path.join(log_dir, "spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    t0 = time.perf_counter()
+    run_ranks(card_worker_argv(spec_path), world, log_dir)
+    ranks_wall = time.perf_counter() - t0
+    got = [torch.load(f"{spec['out']}.{r}", weights_only=True) for r in range(world)]
+    rank0 = got[0]
+
+    cfg = merge(training_cfg("davis_1", 3), {"training": {"max_samples_per_chip": world}})
+    trainer = new_trainer(cfg, os.path.join(root, "T23_one"), "--device", device)
+    batches = iter(trainer.make_loader(0))
+    first = to_device(next(batches), trainer.device)
+    if first["images"].shape[0] != world:
+        raise AssertionError(f"(b) a batch of {first['images'].shape[0]}")
+    probe = TrainStep(trainer.model, cfg, trainer.optimizer, trainer.scheduler,
+                      accumulate_steps=2)
+    exact, out = exact_weight_grads(trainer.model, TRUNK_FIRST_CONVS, lambda: probe(first))
+    metrics = {k: float(v) for k, v in out.items()}
+    params = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    grads = {n: p.grad.detach().cpu() for n, p in trainer.model.named_parameters()
+             if p.requires_grad}
+    trainer.optimizer.zero_grad(set_to_none=True)
+    split_grads, split_metrics = per_clip_reference(trainer.model, cfg, first, world)
+    for _ in range(2):
+        for _ in range(trainer.accumulate_steps):
+            trainer.train_step(to_device(next(batches), trainer.device))
+    state = cpu_state(trainer.model)
+    del trainer, probe, first, batches
+    torch.cuda.empty_cache()
+    trainer, single = timed_trainer_run(training_cfg("davis_1", ONE_CARD_STEPS),
+                                        os.path.join(root, "T23_w1"), CLI_WORKERS, device)
+    del trainer
+    torch.cuda.empty_cache()
+
+    def whole(a, b):
+        fa, fb = (torch.cat([d[n].reshape(-1).double() for n in params]) for d in (a, b))
+        return float(torch.linalg.vector_norm(fa - fb) / torch.linalg.vector_norm(fb))
+
+    def leaf(a, b):
+        return compare_states({"leaf": a}, {"leaf": b})[1][0]
+
+    raw = whole(rank0["grads"], grads)
+    _, worst = compare_states(rank0["grads"], grads)
+    refined = dict(grads, **exact)
+    whole_refined = whole(rank0["grads"], refined)
+    _, worst_refined = compare_states(rank0["grads"], refined)
+    over = sorted(n for n in params if leaf(rank0["grads"][n], grads[n]) > 1e-3)
+    _, worst_split = compare_states(rank0["grads"], split_grads)
+    _, worst_state = compare_states(rank0["state"], state)
+    terms_equal = all(g["metrics"] == rank0["metrics"] for g in got)
+    log(f"  (b) {world} ranks at per_chip 1 against one process at per_chip {world}: loss terms "
+        f"{', '.join(f'{k} {rank0['metrics'][k]:.6f}/{v:.6f}' for k, v in metrics.items())}; "
+        f"the whole gradient {raw:.3e} in float32, worst leaf {worst[0]:.3e} ({worst[1]}), "
+        f"{len(over)} leaves above 1e-3 {over}; with the one process's "
+        f"{len(exact)} trunk-block first convolutions' weight gradients in float64: whole "
+        f"{whole_refined:.3e}, worst leaf {worst_refined[0]:.3e} ({worst_refined[1]})")
+    for n, w64 in exact.items():
+        log(f"  (b) {n} against its float64 weight gradient: {world} ranks "
+            f"{leaf(rank0['grads'][n], w64):.3e}, one process at per_chip {world} "
+            f"{leaf(grads[n], w64):.3e}, one clip at a time {leaf(split_grads[n], w64):.3e}")
+    log(f"  (b) against the same clips one at a time in one process (the ranks' shapes): worst "
+        f"leaf {worst_split[0]:.3e} ({worst_split[1]}); weights after 2 steps against one "
+        f"process: worst leaf {worst_state[0]:.3e} ({worst_state[1]}); the summed loss terms "
+        f"and grad_norm equal on every rank: {terms_equal}")
+    res = {"ranks_wall_s": ranks_wall, "whole_grad_rel_l2": raw,
+           "whole_grad_rel_l2_float64_convs": whole_refined, "worst_grad": worst,
+           "worst_grad_split": worst_split, "worst_state": worst_state, "world_1": single,
+           **{k: [g[k] for g in got] for k in ("all_reduce_bucket_ms", "all_reduce_flat_ms",
+                                                "all_reduce_ints_ms", "step_s",
+                                                "peak_gib_probe", "fp32", "bf16")},
+           "bucket_mb": rank0["bucket_mb"]}
+    report_training_numbers(res, world)
+
+    failures = []
+    differ = {kind: {r: g["differ"][kind] for r, g in enumerate(got) if g["differ"][kind]}
+              for kind in rank0["differ"]}
+    if any(differ.values()):
+        failures.append(f"ranks whose tensors differ from rank 0's: {differ}")
+    if [g["device"] for g in got] != [f"cuda:{r}" if device == "cuda" else device
+                                      for r in range(world)]:
+        failures.append(f"rank devices {[g['device'] for g in got]}")
+    failures += [f"(i) {k} {rank0['metrics'][k]} on {world} ranks, {v} in one process"
+                 for k, v in metrics.items()
+                 if abs(rank0["metrics"][k] - v) > 1e-4 * max(abs(v), 1e-6)]
+    failures += [f"(ii) {k} {rank0['metrics'][k]} on {world} ranks, {v} one clip at a time"
+                 for k, v in split_metrics.items()
+                 if abs(rank0["metrics"][k] - v) > 1e-6 * max(abs(v), 1e-6)]
+    if whole_refined > 1e-3:
+        failures.append(f"(i) the whole gradient {whole_refined:.3e} against one process")
+    if worst_split[0] > 1e-4:
+        failures.append(f"(ii) worst leaf {worst_split}")
+    if worst_state[0] > 1e-3:
+        failures.append(f"weights after 2 steps: worst leaf {worst_state}")
+    failures += [f"(c) {kind}: losses {rank0[kind]['losses']}" for kind in ("fp32", "bf16")
+                 if not all(math.isfinite(v) for v in rank0[kind]["losses"])]
+    if failures:
+        raise AssertionError("(b)/(c): " + "; ".join(failures))
+    log(f"  (b), (c): every rank bitwise equal to rank 0 after the 2 steps, the fp32 and the "
+        f"bf16 runs; every loss finite")
+    return res
+
+
+def report_training_numbers(res, world):
+    """Phase 23 (e), training: the collectives, s a step and clips/s at
+    world 1 and ``world``, the scaling, loader waits and peak memory."""
+    from statistics import median
+
+    def waits(run):
+        w = run["waits_ms"]
+        return (f"{sum(w) / len(w):.3f}", f"{max(w):.3f}") if w else ("n/a", "n/a")
+
+    mb = res["bucket_mb"]
+    flat = [median(ms) for ms in res["all_reduce_flat_ms"]]
+    bus = 2 * (world - 1) / world * mb / 1e3 / (max(flat) / 1e3) if world > 1 else 0.0
+    log(f"  (e) all-reduce of the fp32 gradient ({mb:.1f} MB), median ms a rank: one flat "
+        f"dist.all_reduce {['%.3f' % m for m in flat]} (bus bandwidth {bus:.1f} GB/s at the "
+        f"slowest rank), as the step makes it (cat, all_reduce, copy back) "
+        f"{['%.3f' % median(ms) for ms in res['all_reduce_bucket_ms']]}; the small int "
+        f"all-reduce (to the host) {['%.3f' % median(ms) for ms in res['all_reduce_ints_ms']]}")
+    w1 = res["world_1"]
+    s1 = median(w1["s_per_step"])
+    clips1 = 2 / s1
+    log(f"  (e) world 1 (one process, 2 micro-steps of 1 clip, {CLI_WORKERS} loader workers): "
+        f"{['%.4f' % s for s in w1['s_per_step']]} s a step, median {s1:.4f} s, "
+        f"{clips1:.3f} clips/s; loader wait after the first queue mean / max ms {waits(w1)}; "
+        f"peak {w1['peak_gib']:.2f} GiB")
+    for kind in ("fp32", "bf16"):
+        runs = res[kind]
+        s = max(median(r["s_per_step"]) for r in runs)
+        clips = world / s
+        log(f"  (e) world {world} {kind} ({runs[0]['accumulate_steps']} micro-step of 1 clip a "
+            f"card, {CLI_WORKERS} loader workers a rank): s a step by rank "
+            f"{[['%.4f' % x for x in r['s_per_step']] for r in runs]}; median {s:.4f} s, "
+            f"{clips:.3f} clips/s" + (f", {clips / clips1:.2f}x world 1's fp32"
+                                      if kind == "fp32" else "") +
+            f"; loader wait after the first queue, mean / max ms by rank "
+            f"{[waits(r) for r in runs]}; first wait s "
+            f"{['%.3f' % r['first_wait_s'] for r in runs]}; peak GiB a rank "
+            f"{['%.2f' % r['peak_gib'] for r in runs]}")
+    log(f"  (b) the 2 timed optimizer steps by rank {res['step_s']} s; peak GiB a rank "
+        f"{['%.2f' % g for g in res['peak_gib_probe']]}; ranks' wall "
+        f"{res['ranks_wall_s']:.1f} s")
+
+
+def rank_pid(parent, rank):
+    """The pid of the child of ``parent`` whose environment holds
+    ``RANK=rank`` (a rank that torch.distributed.run started), or None."""
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                if int(fh.read().rsplit(")", 1)[1].split()[1]) != parent:
+                    continue
+            with open(f"/proc/{d}/environ", "rb") as fh:
+                env = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if f"RANK={rank}".encode() in env:
+            return int(d)
+    return None
+
+
+def torchrun_session(cmd, log_path, interrupt_rank=None):
+    """One ``torch.distributed.run`` session, its ranks' output teed with
+    ``[default<r>]:`` prefixes; with ``interrupt_rank``, a SIGINT to that
+    rank's process alone once rank 0 logs step 2. Killed, with its process
+    group, after ``PHASE23_TIMEOUT``. Returns (exit code, {rank: lines},
+    wall seconds)."""
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=HERE, start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=HERE, PYTHONUNBUFFERED="1"))
+    watchdog = threading.Timer(PHASE23_TIMEOUT, stop_group, (proc,))
+    watchdog.daemon = True
+    watchdog.start()
+    lines, sent = [], False
+    try:
+        with open(log_path, "a") as fh:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                fh.write(line)
+                if (interrupt_rank is not None and not sent
+                        and line.startswith("[default0]:it 2/")):
+                    pid = None
+                    for _ in range(50):
+                        pid = rank_pid(proc.pid, interrupt_rank)
+                        if pid is not None:
+                            break
+                        time.sleep(0.1)
+                    if pid is None:
+                        raise AssertionError(f"(a) no process of rank {interrupt_rank}")
+                    os.kill(pid, signal.SIGINT)
+                    sent = True
+                    log(f"  (a) SIGINT to rank {interrupt_rank} (pid {pid}) after rank 0 logged "
+                        "step 2")
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        stop_group(proc)
+    by_rank = {}
+    for line in lines:
+        if line.startswith("[default") and "]:" in line:
+            r, text = line[len("[default"):].split("]:", 1)
+            by_rank.setdefault(int(r), []).append(text)
+    if rc != 0 or (interrupt_rank is not None and not sent):
+        raise AssertionError(f"(a) torch.distributed.run exited {rc}" + (
+            "" if sent or interrupt_rank is None else " before rank 0 logged step 2") +
+            ":\n" + "\n".join(lines[-60:]))
+    return by_rank, time.perf_counter() - t0
+
+
+def torchrun_phase(root, world, device="cuda"):
+    """Phase 23 (a): path T through the trainer CLI as users launch it,
+    ``python -m torch.distributed.run --standalone --nproc_per_node
+    <world> -m stemseg_tpu_torch.training.main`` (NCCL, the CLI's loader
+    workers), 4 optimizer steps: a SIGINT to one rank (rank 2 of 4) after
+    step 2 stops every rank after the same step, below 4, and rank 0 alone
+    saves; a relaunch resumes there and reaches step 4; ``steps.jsonl`` and
+    ``metrics.jsonl`` hold each step 1..4 once, every loss finite."""
+    from stemseg_tpu_torch.config import save_config
+    from stemseg_tpu_torch.training.checkpoint import find_latest_checkpoint
+
+    cfg_path = os.path.join(root, "T23a.yaml")
+    save_config(training_cfg("davis_1", 4), cfg_path)
+    model_dir = os.path.join(root, "T23a")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(world), "--tee", "3", "-m", "stemseg_tpu_torch.training.main", "--model_dir",
+           model_dir, "--cfg", cfg_path, "--display_interval", "1", "--summary_interval", "1",
+           "--device", device]
+    log_path = os.path.join(root, "T23a.log")
+    target = min(2, world - 1)
+    by_rank, wall1 = torchrun_session(cmd, log_path, interrupt_rank=target)
+    if sorted(by_rank) != list(range(world)):
+        raise AssertionError(f"(a) output of ranks {sorted(by_rank)}")
+    stopped = {}
+    for r, lines in by_rank.items():
+        marks = [int(t.split("after iteration ", 1)[1].split(":")[0]) for t in lines
+                 if t.startswith("Interrupt signal received after iteration ")]
+        if len(marks) != 1:
+            raise AssertionError(f"(a) rank {r}: interrupt lines {marks}")
+        stopped[r] = marks[0]
+    saves = {r: [t.split(": ", 1)[1] for t in lines if t.startswith("Checkpoint saved to")]
+             for r, lines in by_rank.items()}
+    step = stopped[0]
+    ckpts = sorted(f for f in os.listdir(model_dir) if f.endswith(".pth"))
+    if set(stopped.values()) != {step} or not 2 <= step < 4 or len(saves[0]) != 1 \
+            or any(saves[r] for r in range(1, world)) or ckpts != [f"{step:06d}.pth"]:
+        raise AssertionError(f"(a) stopped after {stopped}, saves {saves}, checkpoints {ckpts}")
+    log(f"  (a) session 1: every rank stopped after step {step}, rank 0 alone saved {ckpts[0]} "
+        f"({wall1:.1f} s)")
+
+    by_rank, wall2 = torchrun_session(cmd, log_path)
+    for r in range(world):
+        text = "\n".join(by_rank.get(r, []))
+        if f"Restoring session from {saves[0][0]}" not in text or \
+                f"Commencing/resuming training from iteration {step + 1}" not in text:
+            raise AssertionError(f"(a) session 2, rank {r}: no resume from step {step}:\n"
+                                 f"{text[-2000:]}")
+    if not any(t.startswith("Training complete") for t in by_rank[0]) \
+            or os.path.basename(find_latest_checkpoint(model_dir)) != "000004.pth":
+        raise AssertionError("(a) session 2 did not reach step 4")
+    with open(os.path.join(model_dir, "logs", "steps.jsonl")) as fh:
+        steps = [json.loads(line)["step"] for line in fh if line.strip()]
+    records = read_metrics(model_dir, DIST_KEYS)
+    if steps != [1, 2, 3, 4] or [r["step"] for r in records] != [1, 2, 3, 4]:
+        raise AssertionError(f"(a) steps.jsonl {steps}, metrics.jsonl "
+                             f"{[r['step'] for r in records]}")
+    log(f"  (a) session 2: every rank resumed at step {step + 1}, rank 0 reached step 4 "
+        f"({wall2:.1f} s); steps.jsonl and metrics.jsonl hold steps 1-4 once; totals "
+        f"{['%.5f' % r['total'] for r in records]}")
+    return {"stopped_after": step, "session_walls_s": [wall1, wall2],
+            "totals": [r["total"] for r in records]}
+
+
+def kernels_on_each_card(ops, world):
+    """Phase 23: on each card, ``cluster_points_single`` at 207,360 points
+    and ``cluster_points_tiled`` at 878,592 against the plain version on
+    that card (phase 3's rule), ``lsa_masked`` against its plain version on
+    40 fuzz cases, exactly; each output on its inputs' card, and each
+    clustering workspace on the card it is kept for."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.ops import lsap
+
+    cases = lsa_fuzz_cases(n=40)
+    for d in range(world):
+        with torch.cuda.device(d):
+            for name, p in (("cluster_points_single", 207_360),
+                            ("cluster_points_tiled", 878_592)):
+                tensors = cuda_inputs(p)
+                kwargs = main_kwargs()
+                labels, meta = getattr(ops, name)(*tensors, **kwargs)
+                if {t.device.index for t in (*tensors, labels, meta)} != {d}:
+                    raise AssertionError(f"cuda:{d} {name}: output on {labels.device}")
+                n_valid, n_mism, _ = compare_with_plain(ops, f"cuda:{d} {name} P={p}", tensors,
+                                                        labels, meta, kwargs)
+                log(f"  cuda:{d} {name} P={p}: {n_valid} clusters, {n_mism} knife-edge label "
+                    "mismatches, meta equal")
+            for cost, rv, cv in cases:
+                cpu = [torch.from_numpy(x) for x in (cost, rv, cv)]
+                plain = [t.numpy() for t in lsap.lsa_masked_reference(*cpu)]
+                out = lsap.lsa_masked(*[x.to(f"cuda:{d}") for x in cpu])
+                if any(t.device.index != d for t in out) or not all(
+                        np.array_equal(a, b.cpu().numpy()) for a, b in zip(plain, out)):
+                    raise AssertionError(f"cuda:{d} lsa_masked differs from the plain version "
+                                         f"at {cost.shape}")
+            log(f"  cuda:{d} lsa_masked: {len(cases)} fuzz cases equal to the plain version")
+    kept = {index for index, _ in ops._workspaces}
+    wrong = [(key, str(ws.device)) for key, ws in ops._workspaces.items()
+             if ws.device.index != key[0]]
+    if wrong or not set(range(world)) <= kept:
+        raise AssertionError(f"clustering workspaces: cards {sorted(kept)}, misplaced {wrong}")
+
+
+class CliSplit:
+    """Host seconds of the inference CLI's frame reads and writer calls,
+    patched onto ``TrackGenerator`` for one run."""
+
+    def __init__(self):
+        self.read_s = self.write_s = 0.0
+
+    @contextlib.contextmanager
+    def patched(self):
+        from stemseg_tpu_torch.inference.main import TrackGenerator
+
+        read, write = TrackGenerator._read_frames, TrackGenerator._write
+
+        def timed_read(tg, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return read(tg, *args, **kwargs)
+            finally:
+                self.read_s += time.perf_counter() - t0
+
+        def timed_write(tg, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return write(tg, *args, **kwargs)
+            finally:
+                self.write_s += time.perf_counter() - t0
+
+        TrackGenerator._read_frames, TrackGenerator._write = timed_read, timed_write
+        try:
+            yield self
+        finally:
+            TrackGenerator._read_frames, TrackGenerator._write = read, write
+
+
+def profiled_by_card(fn, expect, tag, attempts=2):
+    """Runs ``fn`` under torch.profiler and counts, by the device index of
+    each kernel event, the clustering kernels' and the lsap kernel's
+    launches (graph replays included) and every device event's ms.
+    ``expect`` is {card: {"cluster_kernel": n, "lsa_kernel": n}}; a
+    session that counted otherwise is run again (the profiler has been
+    seen to lose a launch), and the last one raises. Returns (fn's result,
+    {card: counts and "busy_ms"})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(d)
+        by_card = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                c = by_card.setdefault(evt.device_index,
+                                       {"cluster_kernel": 0, "lsa_kernel": 0, "busy_ms": 0.0})
+                for name in ("cluster_kernel", "lsa_kernel"):
+                    c[name] += name in evt.name
+                c["busy_ms"] += evt.time_range.elapsed_us() / 1e3
+        counts = {d: {k: c[k] for k in ("cluster_kernel", "lsa_kernel")}
+                  for d, c in by_card.items() if c["cluster_kernel"] or c["lsa_kernel"]}
+        if counts == expect:
+            return result, by_card
+        log(f"  {tag}: profiler session {attempt + 1} of {attempts} counted {counts}, "
+            f"expected {expect}")
+    raise AssertionError(f"{tag}: device launches by card {counts}, expected {expect}")
+
+
+def left_behind(world):
+    """What a finished inference run left: the fused pipelines, device
+    states and track generators still alive (before and after a cyclic
+    GC), and on each card the bytes allocated and reserved, those of CUDA
+    graph pools apart (allocated / held)."""
+    import gc
+
+    import torch
+
+    from stemseg_tpu_torch.inference import fused_pipeline
+    from stemseg_tpu_torch.inference.main import TrackGenerator
+
+    kinds = (TrackGenerator, fused_pipeline.FusedSequencePipeline, fused_pipeline._State)
+
+    def alive():
+        return [sum(isinstance(o, k) for o in gc.get_objects()) for k in kinds]
+
+    before = alive()
+    gc.collect()
+    cards = {}
+    if torch.cuda.is_available():
+        pools = {}
+        for seg in torch.cuda.memory._snapshot()["segments"]:
+            if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0):
+                a, t = pools.get(seg["device"], (0, 0))
+                pools[seg["device"]] = (a + seg["allocated_size"], t + seg["total_size"])
+        for d in range(world):
+            a, t = pools.get(d, (0, 0))
+            cards[d] = (f"{torch.cuda.memory_allocated(d) / 2**30:.2f} / "
+                        f"{torch.cuda.memory_reserved(d) / 2**30:.2f} GiB, graph pools "
+                        f"{a / 2**30:.2f} / {t / 2**30:.2f}")
+    return (f"(generators, pipelines, states) alive {before}, after gc.collect() {alive()}; "
+            f"by card allocated / reserved {cards}")
+
+
+def kernel_launches(by_card):
+    """{card: {"cluster_kernel": n, "lsa_kernel": n}} of ``profiled_by_card``'s
+    counts."""
+    return {d: {k: c[k] for k in ("cluster_kernel", "lsa_kernel")}
+            for d, c in sorted(by_card.items())}
+
+
+def serving_phase(root, world, device="cuda"):
+    """Phase 23 (d): the inference CLI's ``--data_parallel`` with
+    ``davis_2`` in bf16 (random weights as a ``.pth`` beside its config)
+    over every card, on a generated DAVIS set of ``2 * world`` sequences of
+    480x854 with the lengths of DAVIS 2017 val's first ones in its order
+    (two chunks of ``world``): the chunks as ``run_batch`` gets them, the
+    PNGs byte-equal to the serial CLI's on the first card, the clustering
+    and lsap launches counted by the profiler on each card (the windows of
+    its own sequences) and each card's device busy ms; its wall against the
+    serial CLI's, each split into frame reads, the fused runs (the CLI's
+    "inference" timer) and writer calls (host clock), in turns (serial and
+    data parallel profiled, then both again), each followed by what it left
+    on the cards (``left_behind``); and, first, ``run_batch`` over every
+    card equal to ``run`` on each sequence."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.config import load_preset, merge, save_config
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.inference.fused_pipeline import FusedSequencePipeline
+    from stemseg_tpu_torch.inference.windows import get_subsequence_frames
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    lengths = list(DAVIS17_VAL_LENGTHS.items())[:2 * world]
+    data = os.path.join(root, "DP23")
+    ann = os.path.join(data, "annotations")
+    os.makedirs(ann)
+    t0 = time.perf_counter()
+    write_video_set(np.random.RandomState(MAIN_SEED + 23), os.path.join(data, "davis"), ann,
+                    "davis_val.json", 480, 854, [(s, n, {1: 1}, {}) for s, n in lengths],
+                    separate=True)
+    log(f"  (d) {len(lengths)} sequences of 480x854 written, {sum(n for _, n in lengths)} "
+        f"frames ({time.perf_counter() - t0:.1f} s)")
+    env = {"DAVIS_BASE_DIR": os.path.join(data, "davis"), "STEMSEG_JSON_ANNOTATIONS_DIR": ann}
+    cfg = merge(load_preset("davis_2"), {"clustering": {"min_seediness_prob": 0.05}})
+    model = build_random_model(cfg, synthetic_frames(2, 480, 854, MAIN_SEED), MAIN_SEED,
+                              device=device)
+    pth = os.path.join(data, "model", "davis.pth")
+    os.makedirs(os.path.dirname(pth))
+    torch.save({"model": model.state_dict()}, pth)
+    save_config(cfg, os.path.join(data, "model", "config.yaml"))
+    del model
+    windows = [len(get_subsequence_frames(n, cfg.input.num_frames,
+                                          cfg.data.davis.inference_frame_overlap))
+               for _, n in lengths]
+    expect = {d: {"cluster_kernel": sum(windows[d::world]), "lsa_kernel": sum(windows[d::world])}
+              for d in range(world)}
+    devices = [f"cuda:{d}" for d in range(world)] if device == "cuda" else [device] * world
+
+    # run_batch over every card against run, on the first `world` sequences
+    model = cli.load_model(cfg, pth, device=device, dtype=torch.bfloat16)
+    tg = make_track_generator(cfg, "davis", model, os.path.join(data, "rb"), use_fused=True)
+    seqs = [synthetic_frames(n, 480, 854, seed=MAIN_SEED + i)
+            for i, (_, n) in enumerate(lengths[:world])]
+    schedules = [tg._schedule(len(f), f.shape[1:3]) for f in seqs]
+    kw = dict(seediness_fg_threshold=tg.seediness_thresh, resize_hw=schedules[0][1])
+    want = [tg.fused.run(f, w, **kw) for f, (w, _) in zip(seqs, schedules)]
+    rb_expect = {d: {"cluster_kernel": len(w), "lsa_kernel": len(w)}
+                 for d, (w, _) in enumerate(schedules)}
+    for attempt in ("first (the replicas warm up and capture)", "second (replays)"):
+        t1 = time.perf_counter()
+        got, rb_by_card = profiled_by_card(
+            lambda: tg.fused.run_batch(seqs, [w for w, _ in schedules], devices, **kw),
+            rb_expect, f"(d) run_batch {attempt}")
+        for i, ((wl, wc, wt, wf, _), (gl, gc, gt, gf, _)) in enumerate(zip(want, got)):
+            if not (np.array_equal(wl, gl) and wc == gc and wt == gt and np.array_equal(wf, gf)):
+                raise AssertionError(f"(d) run_batch {attempt}: sequence {i} differs from run")
+        log(f"  (d) run_batch over {devices}, {attempt}: labels, counts, lifetimes and fg masks "
+            f"equal to run on {[len(f) for f in seqs]} frames; device launches by card "
+            f"{kernel_launches(rb_by_card)} "
+            f"({time.perf_counter() - t1:.3f} s profiled)")
+    del tg, model
+    torch.cuda.empty_cache()
+
+    chunks = []
+    run_batch = FusedSequencePipeline.run_batch
+
+    def spy(self, frames_batch, windows_batch, devs, **kwargs):
+        chunks.append(([len(f) for f in frames_batch], list(devs)))
+        return run_batch(self, frames_batch, windows_batch, devs, **kwargs)
+
+    def cli_run(name, extra):
+        out = os.path.join(data, name)
+        split = CliSplit()
+        Timer.reset()
+        with split.patched():
+            t1 = time.perf_counter()
+            cli.main([pth, "-o", out, "--dataset", "davis", "--bf16", "--device", device,
+                      *extra])
+            wall = time.perf_counter() - t1
+        log(f"  (d) after {name}: {left_behind(world)}")
+        return out, {"wall_s": wall, "read_s": split.read_s, "write_s": split.write_s,
+                     "inference_s": Timer.get_duration("inference")}
+
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    FusedSequencePipeline.run_batch = spy
+    runs = {}
+    try:
+        runs["serial 1"], serial_by_card = profiled_by_card(
+            lambda: cli_run("serial_1", []),
+            {0: {"cluster_kernel": sum(windows), "lsa_kernel": sum(windows)}}, "(d) serial")
+        runs["data parallel 1"], by_card = profiled_by_card(
+            lambda: cli_run("data_parallel_1", ["--data_parallel"]), expect,
+            "(d) --data_parallel")
+        runs["serial 2"] = cli_run("serial_2", [])
+        runs["data parallel 2"] = cli_run("data_parallel_2", ["--data_parallel"])
+    finally:
+        FusedSequencePipeline.run_batch = run_batch
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    want_chunks = [([n for _, n in lengths[i:i + world]], devices)
+                   for i in range(0, len(lengths), world)]
+    if chunks != want_chunks * 2:  # the two data-parallel runs
+        raise AssertionError(f"(d) run_batch chunks {chunks}, expected {want_chunks} a run")
+    serial = runs["serial 1"][0]
+    n_files = 0
+    for dirpath, _, files in os.walk(os.path.join(serial, "results")):
+        for f in files:
+            rel = os.path.relpath(os.path.join(dirpath, f), serial)
+            with open(os.path.join(serial, rel), "rb") as fh:
+                ref = fh.read()
+            for name, (out, _) in runs.items():
+                with open(os.path.join(out, rel), "rb") as fh:
+                    if fh.read() != ref:
+                        raise AssertionError(f"(d) {rel} of {name} differs from serial 1's")
+            n_files += 1
+    if n_files != sum(n for _, n in lengths):
+        raise AssertionError(f"(d) {n_files} PNGs")
+    log(f"  (d) --data_parallel --bf16 over {world} cards: chunks {want_chunks}; {n_files} PNGs "
+        f"of every run byte-equal to the serial CLI's; device launches by card "
+        f"{kernel_launches(by_card)} "
+        f"(expected {expect}); device busy ms by card "
+        f"{ {d: round(c['busy_ms'], 3) for d, c in sorted(by_card.items())} }, the serial "
+        f"CLI's {round(serial_by_card[0]['busy_ms'], 3)}")
+    for name, (_, t) in runs.items():
+        log(f"  (e) {name}: wall {t['wall_s']:.3f} s; frame reads {t['read_s']:.3f} s, fused "
+            f"runs (inference timer) {t['inference_s']:.3f} s, writer calls "
+            f"{t['write_s']:.3f} s"
+            + (" (profiled)" if name == "data parallel 1" else ""))
+    ratio = runs["serial 2"][1]["wall_s"] / runs["data parallel 2"][1]["wall_s"]
+    log(f"  (e) serial / data parallel wall (runs 2): {ratio:.3f}")
+
+    return {"walls": {name: t for name, (_, t) in runs.items()}, "by_card": by_card,
+            "serial_over_data_parallel": ratio}
+
+
+def four_card_phase(ops, world):
+    """Phase 23 on ``world`` cards: the kernels on each card, the ranks of
+    (b), (c) and (e), the trainer CLI under torch.distributed.run (a), and
+    serving (d). Every part runs, and the phase raises after them if any
+    failed (no part stands in for another). Returns their numbers."""
+    import traceback
+
+    import torch
+
+    results, failures = {}, []
+    with tempfile.TemporaryDirectory() as root:
+        for name, fn in (("kernels on each card", lambda: kernels_on_each_card(ops, world)),
+                         ("(b), (c), (e): ranks on their cards against one card",
+                          lambda: card_ranks_phase(root, world)),
+                         ("(a): the trainer CLI under torch.distributed.run",
+                          lambda: torchrun_phase(root, world)),
+                         ("(d): serving on every card", lambda: serving_phase(root, world))):
+            log(f"== phase 23 {name}")
+            t0 = time.perf_counter()
+            try:
+                results[name] = fn()
+            except Exception:
+                failures.append(name)
+                log(f"  FAILED: {name}\n{traceback.format_exc()}")
+            log(f"  {name}: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"phase 23 failed: {failures}")
+    return results
+
+
+def four_cards_main():
+    """``python3 chip_smoke.py --four-cards``: phase 23 alone, on a host
+    with ``FOUR_CARDS`` cards; it exits non-zero before it builds anything
+    where there are fewer."""
+    if not os.path.isdir(os.path.join(HERE, "stemseg_tpu_torch")):
+        sys.stderr.write("chip_smoke: run it from the root of a checkout\n")
+        sys.exit(1)
+    import statistics
+
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < FOUR_CARDS:
+        sys.stderr.write(f"chip_smoke --four-cards: needs {FOUR_CARDS} CUDA devices on one "
+                         f"host, found {count}\n")
+        sys.exit(1)
+    sys.path.insert(0, HERE)
+    from stemseg_tpu_torch.ops import build, cluster as ops
+    from stemseg_tpu_torch.utils.device import resolve_device
+
+    t_start = time.perf_counter()
+    log("== phase 1: devices")
+    resolve_device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60).stdout
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda}, {count} devices: "
+        f"{[torch.cuda.get_device_name(d) for d in range(count)]}; host cores {os.cpu_count()}")
+    for line in smi:
+        log(f"  nvidia-smi: {line}")
+    log("  nvidia-smi topo -m:\n" + topo)
+    nvlink = subprocess.run(["nvidia-smi", "nvlink", "--status", "-i", "0"],
+                            capture_output=True, text=True, timeout=60).stdout
+    links = [line.split(":", 1)[1].strip() for line in nvlink.splitlines()
+             if line.strip().startswith("Link ")]
+    log(f"  NVLink links of GPU0 (nvidia-smi nvlink --status -i 0): {len(links)}, "
+        f"{sorted(set(links))}; peer access from cuda:0: "
+        f"{[torch.cuda.can_device_access_peer(0, d) for d in range(1, count)]}")
+    log("== phase 2: build")
+    for res in build.build().values():
+        log(f"  {res.name}: built in {res.seconds:.1f} s")
+    results = four_card_phase(ops, FOUR_CARDS)
+    log(f"== done in {time.perf_counter() - t_start:.1f} s")
+    ranks = results["(b), (c), (e): ranks on their cards against one card"]
+    serving = results["(d): serving on every card"]
+    med = statistics.median
+    print(json.dumps({"phase23": {
+        "cards": smi, "nvlinks_of_gpu0": links, "host_cores": os.cpu_count(),
+        "bucket_mb": ranks["bucket_mb"],
+        "whole_grad_rel_l2": {"float32": ranks["whole_grad_rel_l2"],
+                              "float64_convs": ranks["whole_grad_rel_l2_float64_convs"]},
+        "all_reduce_flat_ms": [med(m) for m in ranks["all_reduce_flat_ms"]],
+        "all_reduce_bucket_ms": [med(m) for m in ranks["all_reduce_bucket_ms"]],
+        "all_reduce_ints_ms": [med(m) for m in ranks["all_reduce_ints_ms"]],
+        "s_per_step_world_1": med(ranks["world_1"]["s_per_step"]),
+        "s_per_step_world_4": {k: max(med(r["s_per_step"]) for r in ranks[k])
+                               for k in ("fp32", "bf16")},
+        "launches_by_card": kernel_launches(serving["by_card"]),
+        "serial_over_data_parallel_wall": serving["serial_over_data_parallel"]}}))
+    for line in smi:
+        print(line)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "stemseg_tpu_torch")):
         sys.stderr.write("chip_smoke: run it from the root of a checkout\n")
@@ -4110,6 +5110,8 @@ def main():
         "launches_by_path": {path: run["lsa_masked"] for path, run in launches_by_path.items()
                              if "lsa_masked" in run},
         **lsap_row})
+    log("== phase 23 (data parallelism on four cards) runs alone, on a host with four cards: "
+        "python3 chip_smoke.py --four-cards")
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(table))
     print(smi)
@@ -4121,5 +5123,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:  # a rank of phase 22 (b)
         sys.path.insert(0, HERE)
         two_rank_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--card-worker"]:  # a rank of phase 23 (b), (c), (e)
+        sys.path.insert(0, HERE)
+        card_rank_worker(sys.argv[2])
+    elif sys.argv[1:] == ["--four-cards"]:
+        four_cards_main()
     else:
         main()

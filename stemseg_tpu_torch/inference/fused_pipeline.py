@@ -27,10 +27,11 @@ Ring rows are assigned statically (``frame % 2T``, rows ``p < T - 1``
 mirrored at ``p + 2T``), so a window's T rows are one contiguous run.
 
 On a CUDA device the prelude, pass A with ``n`` new frames and pass B with
-a band of ``b`` rows each run eagerly the first time they are called, on
-the pipeline's capture stream, and are captured into a
-``torch.cuda.CUDAGraph`` the second time; from then on the host replays
-them, once per real window, with the window's index in a device scalar.
+a band of ``b`` rows each run eagerly the first time a host thread calls
+them, on the pipeline's capture stream, and are captured into a
+``torch.cuda.CUDAGraph`` that thread's next time; from then on the host
+replays them, once per real window, with the window's index in a device
+scalar.
 Padded windows are simply not replayed. The masks and the final cast run
 once a sequence, eagerly. The pipeline keeps one device state: the buffers
 of the runs with the same input and frame sizes, T, K, compute dtype,
@@ -63,6 +64,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import threading
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -256,7 +259,10 @@ class _State:
                  l_cap: int, w_cap: int, t_win: int, semseg_output_type: str,
                  threshold: float):
         dev = pipe.engine.device
-        self.pipe = pipe
+        # the pipeline owns its state: a strong reference back would make a
+        # cycle, and a dropped pipeline would keep its state (device buffers,
+        # graphs and their pool) until the cyclic GC ran
+        self.pipe = weakref.proxy(pipe)
         self.key = key
         self.resize_hw = tuple(resize_hw)
         self.l_cap, self.w_cap, self.t_win = l_cap, w_cap, t_win
@@ -424,7 +430,8 @@ class _State:
         """Runs one per-window body, ``"prelude"``, ``("scan_a", n_new)`` or
         ``("scan_b", band)`` (``window`` is its window index): eagerly on
         the CPU; on a CUDA device eagerly on the capture stream the first
-        time (a warm-up), captured the next time, replayed from then on."""
+        time on a host thread (a warm-up), captured that thread's next time,
+        replayed from then on."""
         if window is not None:
             self.win_idx.fill_(window)
         body = {"prelude": self._prelude,
@@ -435,7 +442,12 @@ class _State:
             return
         graph = self.graphs.get(name)
         stream = self.pipe.stream
-        if graph is None and name in self.warm:
+        # captured only on a host thread that ran it eagerly before: a
+        # thread's first cuDNN call can create its handle, which allocates
+        # device memory and so cannot be captured (``run_batch`` runs each
+        # call on new threads)
+        warm_key = (name, threading.get_ident())
+        if graph is None and warm_key in self.warm:
             # capture_begin / capture_end on the capture stream, not
             # torch.cuda.graph: that synchronises and empties the caching
             # allocators (device and page-locked host) at every capture
@@ -459,7 +471,7 @@ class _State:
         with torch.cuda.stream(stream):
             body()
         torch.cuda.current_stream().wait_stream(stream)
-        self.warm.add(name)
+        self.warm.add(warm_key)
 
 
 def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:

@@ -175,12 +175,18 @@ class TrackGenerator:
             secondary_assignment=ccfg.secondary_assignment)
         self.cluster_time_log = ClusterTimeLog() if profile_clustering else None
 
+        # the chainer's callback does not hold ``self``: the generator would sit
+        # in a cycle, and its model and device state outlive ``main`` until
+        # the cyclic GC ran
+        full_scale, params, time_log = (self.cluster_full_scale, self.cluster_params,
+                                        self.cluster_time_log)
+
         def cluster_fn(emb, bw, seed, fg_mask, label_start):
-            if self.cluster_full_scale:
+            if full_scale:
                 emb, bw = upscale_window(emb), upscale_window(bw)
                 seed = upscale_window(seed[..., None])[..., 0]
-            return cluster_window(emb, bw, seed, fg_mask, self.cluster_params,
-                                  label_start, time_log=self.cluster_time_log)
+            return cluster_window(emb, bw, seed, fg_mask, params, label_start,
+                                  time_log=time_log)
 
         self.chainer = OnlineChainer(cluster_fn, max_instances=ccfg.max_instances)
         self.fused = None
@@ -451,6 +457,13 @@ def main(argv=None):
             write_trace(profiler, args.profile, generator.device)
     output_generator.save()
     print(f"Results saved to {output_dir}")
+    if generator.device.type == "cuda":
+        # the fused pipelines' CUDA graph pools stay cached after their graphs
+        # are gone, and the caching allocator cannot release them while a
+        # later capture allocates: an in-process caller (tools.eval_all) would
+        # fill the card run by run
+        del generator, model
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -265,7 +265,8 @@ class Trainer:
                     self.backup_session()
 
         except InterruptException:
-            print("Interrupt signal received: checkpointing before exit")
+            print(f"Interrupt signal received after iteration {self.elapsed_iterations}: "
+                  "checkpointing before exit")
             self.backup_session()
             return
         except Exception:

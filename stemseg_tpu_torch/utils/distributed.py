@@ -29,8 +29,9 @@ ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 def init_from_env(device: str = "cuda", backend: Optional[str] = None) -> torch.device:
     """Join the process group the launcher's variables describe and return
     this rank's device: ``cuda:LOCAL_RANK`` for ``device="cuda"``, else
-    ``device``. Returns ``resolve_device(device)`` alone when the variables
-    are not set. Raises if a CUDA device is asked for and there is none."""
+    ``device``; an NCCL group is bound to that card (``device_id``).
+    Returns ``resolve_device(device)`` alone when the variables are not
+    set. Raises if a CUDA device is asked for and there is none."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return resolve_device(device)
     missing = [k for k in ENV_KEYS if k not in os.environ]
@@ -42,10 +43,13 @@ def init_from_env(device: str = "cuda", backend: Optional[str] = None) -> torch.
         dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        # NCCL is bound to the rank's card here, not at its first collective:
+        # a barrier before any collective then cannot guess another card
         dist.init_process_group(
-            backend or ("nccl" if dev.type == "cuda" else "gloo"),
+            backend,
             init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
-            rank=rank, world_size=world)
+            rank=rank, world_size=world, device_id=dev if backend == "nccl" else None)
     return dev
 
 

@@ -10,7 +10,9 @@ R-50-FPN at narrow widths, 2 frames of 64x96:
   from ``value_and_grad`` jitted over the same mesh), the deltas of 3
   optimizer steps within 2e-3 per leaf; normalising each rank's loss by its
   own counts (a mean of per-rank means) misses the gradient bound;
-* R ranks at ``per_chip`` 1 equal one process at ``per_chip`` R;
+* R ranks at ``per_chip`` 1 equal one process at ``per_chip`` R, and at
+  R = 4 the global batch's clips one at a time in one process
+  (``chip_smoke.per_clip_reference``);
 * each rank's index stream is its slice of the JAX trainer's;
 * the CLI on 2 ranks: a SIGINT to rank 1 stops both at one step, rank 0
   checkpoints once, both exit 0, and a relaunch on 2 ranks resumes there
@@ -182,6 +184,9 @@ from test_torch_train_step import (  # noqa: E402
 )
 from test_torch_trainer import TRAIN_SMALL, trainer_args  # noqa: E402
 
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402  (the repo root: phase 23's one-process reference)
+
 N_MICRO = 6  # 3 optimizer steps of 2 micro-steps
 
 
@@ -240,22 +245,33 @@ def worst_leaf(got, want, names):
     return max((rel_l2(got[n].numpy(), want[n]), n) for n in names)
 
 
+_MESH_RUNS = {}
+
+
+def mesh_ranks(davis, world, tmp_path_factory):
+    """(config overrides, global batches, rank 0's output) of ``world``
+    gloo ranks of ``worker``; run once per world in this module."""
+    if world not in _MESH_RUNS:
+        tmp_path = tmp_path_factory.mktemp(f"ranks{world}")
+        over = over_for(world)
+        data = global_batches(world)
+        np.savez(tmp_path / "batches.npz", **data)
+        torch.save(state_dict_from_jax(davis.variables), tmp_path / "weights.pt")
+        spec = {"over": over, "weights": str(tmp_path / "weights.pt"),
+                "batches": str(tmp_path / "batches.npz"), "out": str(tmp_path / "out.pt"),
+                "accumulate": 2}
+        (tmp_path / "spec.json").write_text(json.dumps(spec))
+        run_ranks(lambda r: [os.path.abspath(__file__), str(tmp_path / "spec.json"), str(r)],
+                  world)
+        _MESH_RUNS[world] = (over, data, torch.load(tmp_path / "out.pt", weights_only=True))
+    return _MESH_RUNS[world]
+
+
 @pytest.mark.parametrize("world", [2, 4])
-def test_ranks_match_the_jax_mesh_step(davis, tmp_path, world):
-    over = over_for(world)
-    data = global_batches(world)
+def test_ranks_match_the_jax_mesh_step(davis, tmp_path_factory, world):
+    over, data, got = mesh_ranks(davis, world, tmp_path_factory)
     counts = (data["masks"].reshape(N_MICRO, world, 3, -1).max(-1) > 0).sum(-1)
     assert all(len(set(row)) > 1 for row in counts)  # the ranks' instance counts differ
-
-    np.savez(tmp_path / "batches.npz", **data)
-    torch.save(state_dict_from_jax(davis.variables), tmp_path / "weights.pt")
-    spec = {"over": over, "weights": str(tmp_path / "weights.pt"),
-            "batches": str(tmp_path / "batches.npz"), "out": str(tmp_path / "out.pt"),
-            "accumulate": 2}
-    (tmp_path / "spec.json").write_text(json.dumps(spec))
-    run_ranks(lambda r: [os.path.abspath(__file__), str(tmp_path / "spec.json"), str(r)],
-              world)
-    got = torch.load(tmp_path / "out.pt", weights_only=True)
 
     probe_metrics, probe, metrics, deltas = jax_mesh_reference(davis, over, data, world)
     trainable = sorted(got["probe"])
@@ -287,6 +303,24 @@ def test_ranks_match_the_jax_mesh_step(davis, tmp_path, world):
                                    err_msg=k)
     one_grads = {n: p.grad.numpy() for n, p in model.named_parameters() if p.requires_grad}
     worst = worst_leaf(got["probe"], one_grads, trainable)
+    assert worst[0] <= 1e-5, worst
+
+
+def test_per_clip_reference_equals_four_ranks(davis, tmp_path_factory):
+    """``chip_smoke.per_clip_reference``, phase 23's one-process reference
+    (b)(ii): a global batch's 4 clips one at a time, each loss over the
+    global normalisers, the gradients summed, equals 4 gloo ranks' first
+    micro-step: loss terms within 1e-5 relative, every leaf within 1e-5."""
+    over, data, got = mesh_ranks(davis, 4, tmp_path_factory)
+    cfg = load_config(over)
+    model = build_model(cfg, device="cpu", for_training=True)
+    model.load_state_dict(state_dict_from_jax(davis.variables))
+    batch = {k: torch.from_numpy(v[0]) for k, v in data.items()}
+    grads, terms = chip_smoke.per_clip_reference(model, cfg, batch, 4)
+    assert sorted(grads) == sorted(got["probe"])
+    for k, v in terms.items():
+        np.testing.assert_allclose(got["probe_metrics"][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
+    worst = worst_leaf(got["probe"], {n: g.numpy() for n, g in grads.items()}, sorted(grads))
     assert worst[0] <= 1e-5, worst
 
 
