@@ -210,7 +210,32 @@ which raises on failure (the script then exits non-zero):
    workers' first queue, peak memory a rank, and ``--data_parallel``'s wall
    against the serial CLI's split into frame reads, fused runs and writer
    calls, beside every card's name, power limit and ``nvidia-smi topo -m``.
-   Every part runs, and the phase fails after them if any failed.
+   Then (d) on mixed frame sizes: phase 24's model through the YT-VIS CLI
+   on 4 sequences of each of its four sizes, interleaved, serial and
+   ``--data_parallel`` (one chunk of 4 a size): ``results.json``
+   byte-equal, and each card's ``memory_reserved()`` after every chunk at
+   most its value after the first plus 1 GiB. Every part runs, and the
+   phase fails after them if any failed.
+24. the fused path across frame sizes: ``youtube_vis`` in float32 (random,
+   fg centred) on 20-frame sequences of four raw sizes, 720x1280 and
+   1080x1920 (both 640x1152 padded: the tiled kernel), 480x854 (640x1152)
+   and 375x1242 (384x1216, 233,472 points a window: the single kernel),
+   in three orders, each through one pipeline: (i) alternating, 3 rounds;
+   (ii) the same 12 grouped by size; (iii) alternating on the streaming
+   path; then (iv) a 36-frame 720x1280 sequence on (i)'s pipeline. Labels
+   bit-identical, fg and multiclass masks equal to the streaming path's on
+   every sequence; ``memory_reserved()`` after (i)'s 12th sequence and
+   after (iv) at most its value after the 4th plus 1 GiB; states made,
+   graphs captured, seconds a replacement (a new state's run minus the
+   grouped pass's last run of its size), ``memory_reserved()`` and
+   ``max_memory_reserved()`` after each, overall fps of each order, and
+   the share of the grouped fps the replacements cost; (i) profiled on a
+   fresh pipeline (device busy share; both clustering kernels and the lsap
+   kernel counted from the fused graphs); both clustering kernels on S4's
+   and S1's first real window against the plain version. Then the YT-VIS
+   CLI on 8 sequences of the four sizes, interleaved: serial (fused),
+   ``--profile_clustering`` (streaming) and ``--data_parallel``, their
+   ``results.json`` byte-equal, ``memory_reserved()`` after each.
 
 Phases 4-18 run the streaming path (``use_fused=False``), so their layer
 splits stay comparable; the inference CLI in phases 14 and 18 runs its
@@ -4761,26 +4786,20 @@ def serving_phase(root, world, device="cuda"):
         return out, {"wall_s": wall, "read_s": split.read_s, "write_s": split.write_s,
                      "inference_s": Timer.get_duration("inference")}
 
-    prev = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     FusedSequencePipeline.run_batch = spy
     runs = {}
     try:
-        runs["serial 1"], serial_by_card = profiled_by_card(
-            lambda: cli_run("serial_1", []),
-            {0: {"cluster_kernel": sum(windows), "lsa_kernel": sum(windows)}}, "(d) serial")
-        runs["data parallel 1"], by_card = profiled_by_card(
-            lambda: cli_run("data_parallel_1", ["--data_parallel"]), expect,
-            "(d) --data_parallel")
-        runs["serial 2"] = cli_run("serial_2", [])
-        runs["data parallel 2"] = cli_run("data_parallel_2", ["--data_parallel"])
+        with environment(env):
+            runs["serial 1"], serial_by_card = profiled_by_card(
+                lambda: cli_run("serial_1", []),
+                {0: {"cluster_kernel": sum(windows), "lsa_kernel": sum(windows)}}, "(d) serial")
+            runs["data parallel 1"], by_card = profiled_by_card(
+                lambda: cli_run("data_parallel_1", ["--data_parallel"]), expect,
+                "(d) --data_parallel")
+            runs["serial 2"] = cli_run("serial_2", [])
+            runs["data parallel 2"] = cli_run("data_parallel_2", ["--data_parallel"])
     finally:
         FusedSequencePipeline.run_batch = run_batch
-        for k, v in prev.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
     want_chunks = [([n for _, n in lengths[i:i + world]], devices)
                    for i in range(0, len(lengths), world)]
     if chunks != want_chunks * 2:  # the two data-parallel runs
@@ -4833,7 +4852,9 @@ def four_card_phase(ops, world):
                           lambda: card_ranks_phase(root, world)),
                          ("(a): the trainer CLI under torch.distributed.run",
                           lambda: torchrun_phase(root, world)),
-                         ("(d): serving on every card", lambda: serving_phase(root, world))):
+                         ("(d): serving on every card", lambda: serving_phase(root, world)),
+                         ("(d): serving mixed frame sizes on every card",
+                          lambda: mixed_serving_phase(root, world))):
             log(f"== phase 23 {name}")
             t0 = time.perf_counter()
             try:
@@ -4909,10 +4930,542 @@ def four_cards_main():
         "s_per_step_world_4": {k: max(med(r["s_per_step"]) for r in ranks[k])
                                for k in ("fp32", "bf16")},
         "launches_by_card": kernel_launches(serving["by_card"]),
-        "serial_over_data_parallel_wall": serving["serial_over_data_parallel"]}}))
+        "serial_over_data_parallel_wall": serving["serial_over_data_parallel"],
+        "mixed_sizes_reserved_gib_by_card": results[
+            "(d): serving mixed frame sizes on every card"]}}))
     for line in smi:
         print(line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+# -- phase 24: the fused path across frame sizes ------------------------------
+
+# Four raw frame sizes of a YouTube-VIS val pass, (height, width), and what
+# the youtube_vis preset (min_dim 640, max_dim 1196) makes of them
+MIXED_SIZES = {
+    "S1": (720, 1280),   # 640x1138 (640x1152 padded), 368,640 points a window: tiled
+    "S2": (1080, 1920),  # the same network input as S1, under another raw key
+    "S3": (480, 854),    # 640x1139 (640x1152), 368,640 points: tiled
+    "S4": (375, 1242),   # 361x1196 (384x1216), 233,472 points: cluster_points_single
+}
+MIXED_KERNELS = {"S1": "cluster_points_tiled", "S2": "cluster_points_tiled",
+                 "S3": "cluster_points_tiled", "S4": "cluster_points_single"}
+MIXED_FRAMES = 20
+MIXED_ROUNDS = 3
+MIXED_GROWTH_FRAMES = 36
+RESERVED_SLACK = 2 ** 30  # bytes memory_reserved() may grow by after the first round
+
+
+def mixed_size_sequences(seed=MAIN_SEED):
+    """The alternating order of phase 24, S1 S2 S3 S4 for ``MIXED_ROUNDS``
+    rounds, as (seq id, size, frames), and the growth sequence (S1,
+    ``MIXED_GROWTH_FRAMES`` frames). One synthetic sequence of S1's size,
+    resized to each other size (cv2) and shifted 40 px a round, so that no
+    two sequences are the same; the growth sequence runs S1's frames
+    forward and back."""
+    import cv2
+    import numpy as np
+
+    base = synthetic_frames(MIXED_FRAMES, *MIXED_SIZES["S1"], seed=seed)
+    by_size = {name: base if (h, w) == base.shape[1:3] else np.stack(
+        [cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR) for f in base])
+        for name, (h, w) in MIXED_SIZES.items()}
+    seqs = [(f"{name}_r{r}", name, np.ascontiguousarray(np.roll(by_size[name], 40 * r, axis=2)))
+            for r in range(MIXED_ROUNDS) for name in MIXED_SIZES]
+    growth = np.concatenate([base, base[::-1][:MIXED_GROWTH_FRAMES - MIXED_FRAMES]])
+    return seqs, ("S1_growth", "S1", growth)
+
+
+def grouped_order(seqs):
+    """``seqs`` in runs of one size, each size in the order it first
+    appears, its sequences in their own order."""
+    sizes = list(dict.fromkeys(size for _, size, _ in seqs))
+    return [s for size in sizes for s in seqs if s[1] == size]
+
+
+def mixed_pass(tg, seqs, want=None):
+    """Each (seq id, size, frames) of ``seqs`` through
+    ``tg._process_loaded`` (its writer a ``NullWriter``). Per sequence: the
+    CLI timers' seconds, and after it ``memory_reserved()``,
+    ``max_memory_reserved()`` and the fused pipeline's states made and
+    graphs captured. Without ``want`` it returns, besides, each sequence's
+    labels and fg masks (host) and multiclass masks (device); with it every
+    sequence's must equal ``want``'s, or it raises. Returns (rows,
+    outputs)."""
+    import numpy as np
+    import torch
+
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    seen = {}
+    inner_inf, inner_fused = tg.do_inference, tg.do_fused
+
+    def do_inference(frames, image_hw):
+        out = inner_inf(frames, image_hw)
+        seen.update(fg=out["fg_masks"], mc=out["multiclass_masks"])
+        return out
+
+    def do_fused(frames, image_hw):
+        out = inner_fused(frames, image_hw)
+        seen.update(fg=out[3], mc=out[4])
+        return out
+
+    tg.do_inference, tg.do_fused = do_inference, do_fused
+    rows, outputs = [], {}
+    try:
+        for seq_id, size, frames in seqs:
+            hw = frames.shape[1:3]
+            Timer.reset()
+            labels = tg._process_loaded(Sequence(seq_id, len(frames), hw), frames, hw,
+                                        tg.max_tracks)[0]
+            seconds = Timer.get_durations_sum()
+            torch.cuda.synchronize()
+            pipe = tg.fused
+            rows.append({"id": seq_id, "size": size, "frames": len(frames), "s": seconds,
+                         "reserved": torch.cuda.memory_reserved(),
+                         "max_reserved": torch.cuda.max_memory_reserved(),
+                         "states": pipe.states_made if pipe is not None else 0,
+                         "captures": pipe.captures if pipe is not None else 0})
+            fg = seen["fg"].cpu().numpy() if torch.is_tensor(seen["fg"]) else seen["fg"]
+            out = {"labels": np.asarray(labels.cpu() if torch.is_tensor(labels) else labels,
+                                        np.int32), "fg": fg, "mc": seen.pop("mc")}
+            if want is None:
+                outputs[seq_id] = out
+                continue
+            ref = want[seq_id]
+            same = {"labels": np.array_equal(out["labels"], ref["labels"]),
+                    "fg": out["fg"].dtype == ref["fg"].dtype
+                    and np.array_equal(out["fg"], ref["fg"]),
+                    "mc": torch.equal(out["mc"], ref["mc"])}
+            if not all(same.values()):
+                raise AssertionError(f"{seq_id}: against the streaming path {same}")
+    finally:
+        del tg.do_inference, tg.do_fused
+    return rows, outputs
+
+
+def cluster_kernel_kind(name):
+    """``cluster_points_single`` or ``cluster_points_tiled`` for a device
+    event of ``cluster_kernel<E, mode>`` (mode 0: the single kernel's
+    resident window), demangled or not; None for other events."""
+    import re
+
+    if "cluster_kernel" not in name:
+        return None
+    m = re.search(r"cluster_kernel(?:<\s*\d+\s*,\s*|ILi\d+ELi)(\d)", name)
+    if m is None:
+        raise AssertionError(f"a clustering kernel's mode is not in its name: {name}")
+    return "cluster_points_single" if m.group(1) == "0" else "cluster_points_tiled"
+
+
+def profile_mixed(tg, seqs, expect, attempts=2):
+    """``seqs`` through the fused path of ``tg`` (the CLI's timed phase,
+    ``do_fused``) under torch.profiler: (device busy share of the wall,
+    {kernel: launches}, wall ms). ``expect`` is the launches the session
+    must count of each clustering kernel and of the lsap kernel; a session
+    that counts others is profiled again, and the last one raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _, _, frames in seqs:
+                tg.do_fused(frames, frames.shape[1:3])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy, counts = 0.0, dict.fromkeys(expect, 0)
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                busy += evt.time_range.elapsed_us()
+                kind = cluster_kernel_kind(evt.name)
+                if kind is not None:
+                    counts[kind] += 1
+                counts["lsa_masked"] += "lsa_kernel" in evt.name
+        if counts == expect:
+            return busy / wall_us, counts, wall_us / 1e3
+        log(f"  profiled alternating pass: session {attempt + 1} of {attempts} counted "
+            f"{counts}, expected {expect}")
+    raise AssertionError(f"phase 24: device launches {counts}, expected {expect}")
+
+
+def reserved_gib(dev=None):
+    import torch
+
+    return torch.cuda.memory_reserved(dev) / 2 ** 30
+
+
+def mixed_track_generator(cfg, model, fused):
+    from stemseg_tpu_torch.inference.main import TrackGenerator
+
+    return TrackGenerator(cfg, "ytvis", model, NullWriter(), max_tracks_of(cfg, "ytvis"),
+                          use_fused=fused)
+
+
+def mixed_size_passes(model, cfg, seqs, growth, smi):
+    """Phase 24 (i)-(iv): the youtube_vis model over ``MIXED_SIZES``
+    (``mixed_size_sequences``), each order through one pipeline: (iii) the
+    streaming path in the alternating order and on the growth sequence
+    (its outputs the reference), (i) the fused path in the alternating
+    order, then (iv) the growth sequence on the same pipeline, (ii) the
+    fused path grouped by size on a fresh one (each path's first-use costs
+    taken first by a throwaway pass over one sequence a size); then the
+    alternating order profiled on a fresh pipeline, and the clustering
+    kernels on S4's and S1's first real window against the plain version.
+    Returns the numbers."""
+    import torch
+
+    from stemseg_tpu_torch.ops import cluster as ops
+
+    def new_tg(fused):
+        return mixed_track_generator(cfg, model, fused)
+
+    first_round = seqs[:len(MIXED_SIZES)]
+    # the process's first-use costs at each size (cuDNN's plans, the first
+    # captures) on throwaway passes of both paths
+    mixed_pass(new_tg(False), first_round)
+    mixed_pass(new_tg(True), first_round)
+    gib = 2 ** 30
+    streaming, want = mixed_pass(new_tg(False), seqs + [growth])
+    streaming = streaming[:-1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    tg = new_tg(True)
+    alternating, _ = mixed_pass(tg, seqs, want)
+    grown, _ = mixed_pass(tg, [growth], want)
+    pipe = tg.fused
+    alt_counts = (pipe.states_made, pipe.captures)
+    del tg, pipe
+    torch.cuda.empty_cache()
+    grouped, _ = mixed_pass(new_tg(True), grouped_order(seqs), want)
+    del want
+    torch.cuda.empty_cache()
+
+    def fps(rows):
+        return sum(r["frames"] for r in rows) / sum(r["s"] for r in rows)
+
+    steady = {}
+    for r in grouped:  # the last run of each size: every body replayed
+        steady[r["size"]] = r["s"]
+    per_size = {size: [r["s"] - steady[size] for r in alternating if r["size"] == size]
+                for size in MIXED_SIZES}
+    replacement_s = [x for xs in per_size.values() for x in xs]
+    log(f"  (iii) streaming, alternating ({smi}): " + ", ".join(
+        f"{r['id']} {r['s']:.4f} s" for r in streaming))
+    for name, rows in (("(i) fused, alternating", alternating), ("(iv) growth", grown),
+                       ("(ii) fused, grouped", grouped)):
+        prev = 0
+        for r in rows:
+            made = r["states"] > prev or name == "(iv) growth"
+            prev = r["states"]
+            log(f"  {name}: {r['id']} ({r['frames']} frames) {r['s']:.4f} s; states "
+                f"{r['states']}, graphs captured {r['captures']}; memory_reserved "
+                f"{r['reserved'] / gib:.3f} GiB, max_memory_reserved "
+                f"{r['max_reserved'] / gib:.3f} GiB" + (" (a new state)" if made else ""))
+    log(f"  states made / graphs captured: (i) {alternating[-1]['states']} / "
+        f"{alternating[-1]['captures']}, with (iv) {alt_counts[0]} / {alt_counts[1]}; (ii) "
+        f"{grouped[-1]['states']} / {grouped[-1]['captures']}")
+    log(f"  seconds a replacement ((i)'s run minus (ii)'s last run of its size, {smi}): "
+        + "; ".join(f"{size} " + ", ".join(f"{x:.4f}" for x in xs)
+                    for size, xs in per_size.items())
+        + f"; mean {sum(replacement_s) / len(replacement_s):.4f} s")
+    f_alt, f_grp, f_str = fps(alternating), fps(grouped), fps(streaming)
+    share = 1.0 - f_alt / f_grp
+    log(f"  overall fps ({smi}): (i) alternating {f_alt:.3f}, (ii) grouped {f_grp:.3f}, "
+        f"(iii) streaming {f_str:.3f}; replacements cost {share * 100:.2f} % of the grouped "
+        f"fps ({'at least' if share >= 0.05 else 'under'} the 5 % that would keep a state a "
+        "key)")
+    labels_note = (f"labels bit-identical, fg and multiclass masks equal to the streaming path "
+                   f"on all {len(seqs) + 1} sequences of (i) and (iv) and the {len(seqs)} of "
+                   "(ii)")
+    log(f"  {labels_note}")
+
+    bound = alternating[len(MIXED_SIZES) - 1]["reserved"] + RESERVED_SLACK
+    ends = {"(i) after sequence 12": alternating[-1]["reserved"],
+            "(iv)": grown[-1]["reserved"]}
+    log(f"  memory_reserved after sequence {len(MIXED_SIZES)} of (i) "
+        f"{alternating[len(MIXED_SIZES) - 1]['reserved'] / gib:.3f} GiB; "
+        + ", ".join(f"{k} {v / gib:.3f} GiB" for k, v in ends.items())
+        + f" (bound {bound / gib:.3f})")
+    over = {k: v for k, v in ends.items() if v > bound}
+    if over:
+        raise AssertionError(f"phase 24: memory_reserved grew past the first round + 1 GiB: "
+                             f"{over}")
+
+    tg = new_tg(True)
+    expect = {"cluster_points_single": 0, "cluster_points_tiled": 0, "lsa_masked": 0}
+    for _, size, frames in seqs:
+        n = len(tg._schedule(len(frames), frames.shape[1:3])[0])
+        expect[MIXED_KERNELS[size]] += n
+        expect["lsa_masked"] += n
+    busy, launches, wall_ms = profile_mixed(tg, seqs, expect)
+    log(f"  (i) profiled on a fresh pipeline, the CLI's timed phases: wall {wall_ms:.3f} ms, "
+        f"device busy {busy:.3f} of the wall ({smi}); device launches {launches}")
+    del tg
+    torch.cuda.empty_cache()
+
+    windows = {}
+    stg = new_tg(False)
+    for _, size, frames in first_round:
+        if size not in ("S1", "S4"):
+            continue
+        ops.reset_launch_counts()
+        _, kernel_ms, shape = window_cluster_ms(stg, frames)
+        ran = {k: v for k, v in ops.launch_counts.items() if v and k != "cluster_points_reference"}
+        if list(ran) != [MIXED_KERNELS[size]]:
+            raise AssertionError(f"phase 24 {size}: the first window ran {ran}, expected "
+                                 f"{MIXED_KERNELS[size]}")
+        windows[size] = {"kernel": MIXED_KERNELS[size], "points": int(shape[0]),
+                         "kernel_ms": kernel_ms}
+        log(f"  {size} first real window: {MIXED_KERNELS[size]} at {int(shape[0])} points, "
+            f"{kernel_ms:.4f} ms ({smi})")
+    del stg
+    torch.cuda.empty_cache()
+    return {"fps": {"alternating": f_alt, "grouped": f_grp, "streaming": f_str},
+            "replacement_cost_share": share, "replacement_s": per_size,
+            "states_captures": {"alternating": alt_counts,
+                                "grouped": (grouped[-1]["states"], grouped[-1]["captures"])},
+            "reserved": {"after_4": alternating[len(MIXED_SIZES) - 1]["reserved"], **ends},
+            "busy": busy, "launches": launches, "windows": windows}
+
+
+def write_mixed_ytvis_set(root, per_size=2, sizes=None, n_frames=MIXED_FRAMES,
+                          seed=MAIN_SEED):
+    """A YouTube-VIS val set (``valid/`` frames, ``youtube_vis_val.json``
+    with RLE masks) of ``per_size`` sequences of each of ``sizes`` (default
+    ``MIXED_SIZES``), ``n_frames`` frames each, the sizes interleaved in the
+    JSON's order (S1 S2 S3 S4 S1 ...), 2 or 3 objects a sequence of
+    categories among the 40. Returns the environment variables and the
+    sequence ids."""
+    import numpy as np
+
+    sizes = sizes or MIXED_SIZES
+    rng = np.random.RandomState(seed + 24)
+    base = os.path.join(root, "youtube_vis")
+    ann = os.path.join(root, "annotations")
+    scratch = os.path.join(root, "per_sequence")
+    os.makedirs(ann)
+    os.makedirs(scratch)
+    sequences = []
+    for i in range(per_size):
+        for name, (h, w) in sizes.items():
+            cats = {iid: int(rng.randint(1, 41)) for iid in range(1, 2 + i % 2 + 1)}
+            sequences += write_video_set(rng, base, scratch, f"{name}_{i}.json", h, w,
+                                         [(f"{name.lower()}_{i}", n_frames, cats, {})],
+                                         sub="valid", separate=True)
+    labels = {str(c): str(c) for s in sequences for c in s["categories"].values()}
+    with open(os.path.join(ann, "youtube_vis_val.json"), "w") as fh:
+        json.dump({"meta": {"category_labels": labels}, "sequences": sequences}, fh)
+    env = {"STEMSEG_JSON_ANNOTATIONS_DIR": ann, "YOUTUBE_VIS_BASE_DIR": base}
+    return env, [s["id"] for s in sequences]
+
+
+@contextlib.contextmanager
+def environment(env):
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def reserved_at_end_of_start(readings, devices):
+    """Records ``memory_reserved`` of each of ``devices`` when
+    ``TrackGenerator.start`` returns (before ``main`` frees the run's
+    device state) in ``readings``."""
+    from stemseg_tpu_torch.inference.main import TrackGenerator
+
+    start = TrackGenerator.start
+
+    def spy(self, *args, **kwargs):
+        out = start(self, *args, **kwargs)
+        readings.append({d: reserved_gib(d) for d in devices})
+        return out
+
+    TrackGenerator.start = spy
+    try:
+        yield readings
+    finally:
+        TrackGenerator.start = start
+
+
+def mixed_size_cli(root, cfg, model, smi, device="cuda"):
+    """Phase 24, the CLI: ``model`` as a ``.pth`` beside its config through
+    ``python -m stemseg_tpu_torch.inference.main --dataset ytvis`` on a
+    YT-VIS set of 8 sequences of the four sizes interleaved, serial (the
+    fused path), ``--profile_clustering`` (the streaming path) and
+    ``--data_parallel`` (one card): ``results.json`` byte-equal across the
+    three; ``memory_reserved()`` when each run's sequences are done and
+    after ``main`` returns."""
+    import torch
+
+    from stemseg_tpu_torch.config import save_config
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    data = os.path.join(root, "MX")
+    t0 = time.perf_counter()
+    env, ids = write_mixed_ytvis_set(data)
+    log(f"  CLI: {len(ids)} YT-VIS sequences of {MIXED_FRAMES} frames written, sizes "
+        f"interleaved ({time.perf_counter() - t0:.1f} s)")
+    pth = os.path.join(data, "model", "youtube_vis.pth")
+    os.makedirs(os.path.dirname(pth))
+    torch.save({"model": model.state_dict()}, pth)
+    save_config(cfg, os.path.join(data, "model", "config.yaml"))
+    results, readings = {}, []
+    with environment(env), reserved_at_end_of_start(readings, [0] if device == "cuda" else []):
+        for name, extra in (("serial", []), ("streaming", ["--profile_clustering"]),
+                            ("data_parallel", ["--data_parallel"])):
+            out = os.path.join(data, name)
+            Timer.reset()
+            t1 = time.perf_counter()
+            cli.main([pth, "-o", out, "--dataset", "ytvis", "--device", device, *extra])
+            wall = time.perf_counter() - t1
+            with open(os.path.join(out, "results.json"), "rb") as fh:
+                results[name] = fh.read()
+            after = reserved_gib(0) if device == "cuda" else 0.0
+            log(f"  CLI {name}: wall {wall:.3f} s; memory_reserved at the end of its sequences "
+                f"{readings[-1].get(0, 0.0):.3f} GiB, after main returned {after:.3f} GiB "
+                f"({smi})")
+    n = len(json.loads(results["serial"]))
+    same = {name: r == results["serial"] for name, r in results.items()}
+    log(f"  CLI: results.json ({len(results['serial'])} bytes, {n} instances) byte-equal to "
+        f"the serial run's: {same}")
+    if not all(same.values()) or n == 0:
+        raise AssertionError(f"phase 24 CLI: results.json differ ({same}) or are empty ({n})")
+    return {"results_bytes": len(results["serial"]), "instances": n}
+
+
+def mixed_size_model(device="cuda"):
+    """Phase 24's config (``youtube_vis``, ``min_seediness_prob`` 0.05) and
+    random model (seed 0, the fg logit centred on the first window of S1's
+    frames, as ``mixed_size_sequences`` makes them)."""
+    from stemseg_tpu_torch.config import load_preset, merge
+
+    cfg = merge(load_preset("youtube_vis"), {"clustering": {"min_seediness_prob": 0.05}})
+    frames = synthetic_frames(cfg.input.num_frames, *MIXED_SIZES["S1"], seed=MAIN_SEED)
+    return cfg, build_random_model(cfg, frames, MAIN_SEED, device=device)
+
+
+def mixed_size_phase(out_root, smi):
+    """Phase 24: the fused path across frame sizes (``mixed_size_passes``)
+    and the YT-VIS CLI on a mixed-size set (``mixed_size_cli``)."""
+    import torch
+
+    cfg, model = mixed_size_model()
+    numbers = mixed_size_passes(model, cfg, *mixed_size_sequences(), smi)
+    numbers["cli"] = mixed_size_cli(out_root, cfg, model, smi)
+    del model
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def alternating_reserved(smi="n/a"):
+    """Phase 24's alternating order alone, through one fresh pipeline, with
+    ``memory_reserved()`` after each sequence: it also runs on an older tree
+    of the port (unpack it, copy this file in), where a replaced state's
+    graph pool stays cached. An out-of-memory error ends the pass, and is
+    reported. Returns the readings in GiB."""
+    import torch
+
+    cfg, model = mixed_size_model()
+    seqs, _ = mixed_size_sequences()
+    tg = mixed_track_generator(cfg, model, True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    readings = [reserved_gib()]
+    for seq in seqs:
+        try:
+            rows, _ = mixed_pass(tg, [seq])
+        except torch.OutOfMemoryError as e:
+            log(f"  alternating pass: out of memory at {seq[0]}: {str(e)[:300]}")
+            break
+        readings.append(rows[0]["reserved"] / 2 ** 30)
+        log(f"  alternating pass: {seq[0]} {rows[0]['s']:.4f} s; states {rows[0]['states']}, "
+            f"graphs captured {rows[0]['captures']}; memory_reserved {readings[-1]:.3f} GiB, "
+            f"max_memory_reserved {rows[0]['max_reserved'] / 2 ** 30:.3f} GiB ({smi})")
+    log(f"  alternating pass: memory_reserved from {readings[0]:.3f} GiB to {readings[-1]:.3f} "
+        f"GiB over {len(readings) - 1} sequences")
+    return readings
+
+
+def mixed_serving_phase(root, world, device="cuda"):
+    """Phase 23 (d), mixed frame sizes: phase 24's model (``youtube_vis`` in
+    float32, random, fg centred) as a ``.pth`` through the YT-VIS CLI on a
+    set of ``world`` sequences of each of the four sizes, interleaved:
+    ``--data_parallel`` in one chunk of ``world`` a size, its
+    ``results.json`` byte-equal to the serial CLI's; ``memory_reserved()``
+    of each card after each chunk, bounded by its value after the first
+    chunk plus ``RESERVED_SLACK``."""
+    import torch
+
+    from stemseg_tpu_torch.config import save_config
+    from stemseg_tpu_torch.inference import main as cli
+    from stemseg_tpu_torch.inference.fused_pipeline import FusedSequencePipeline
+    from stemseg_tpu_torch.utils.timer import Timer
+
+    data = os.path.join(root, "MX4")
+    t0 = time.perf_counter()
+    env, ids = write_mixed_ytvis_set(data, per_size=world)
+    log(f"  (d) mixed sizes: {len(ids)} YT-VIS sequences of {MIXED_FRAMES} frames written, "
+        f"{world} of each size, interleaved ({time.perf_counter() - t0:.1f} s)")
+    cfg, model = mixed_size_model(device)
+    pth = os.path.join(data, "model", "youtube_vis.pth")
+    os.makedirs(os.path.dirname(pth))
+    torch.save({"model": model.state_dict()}, pth)
+    save_config(cfg, os.path.join(data, "model", "config.yaml"))
+    del model
+    cards = list(range(world)) if device == "cuda" else []
+    chunks, by_chunk = [], []
+    run_batch = FusedSequencePipeline.run_batch
+
+    def spy(self, frames_batch, windows_batch, devs, **kwargs):
+        out = run_batch(self, frames_batch, windows_batch, devs, **kwargs)
+        chunks.append((tuple(f.shape[1:3] for f in frames_batch), len(devs)))
+        by_chunk.append({d: reserved_gib(d) for d in cards})
+        return out
+
+    results = {}
+    FusedSequencePipeline.run_batch = spy
+    try:
+        with environment(env):
+            for name, extra in (("serial", []), ("data_parallel", ["--data_parallel"])):
+                out = os.path.join(data, name)
+                Timer.reset()
+                t1 = time.perf_counter()
+                cli.main([pth, "-o", out, "--dataset", "ytvis", "--device", device, *extra])
+                log(f"  (d) mixed sizes, {name} CLI: wall {time.perf_counter() - t1:.3f} s")
+                with open(os.path.join(out, "results.json"), "rb") as fh:
+                    results[name] = fh.read()
+    finally:
+        FusedSequencePipeline.run_batch = run_batch
+    want_chunks = [((h, w),) * world for h, w in MIXED_SIZES.values()]
+    if [c for c, _ in chunks] != want_chunks or {n for _, n in chunks} != {world}:
+        raise AssertionError(f"(d) mixed sizes: chunks {chunks}, expected one of {world} a size")
+    if results["data_parallel"] != results["serial"] or not json.loads(results["serial"]):
+        raise AssertionError("(d) mixed sizes: results.json of --data_parallel differs from the "
+                             "serial CLI's, or is empty")
+    log(f"  (d) mixed sizes: --data_parallel over {world} cards, one chunk of {world} a size "
+        f"({list(MIXED_SIZES)}); results.json ({len(results['serial'])} bytes) byte-equal to "
+        "the serial CLI's")
+    over = {}
+    for d in cards:
+        seen = [c[d] for c in by_chunk]
+        log(f"  (d) mixed sizes: cuda:{d} memory_reserved after each chunk "
+            f"{[round(x, 3) for x in seen]} GiB")
+        if max(seen) > seen[0] + RESERVED_SLACK / 2 ** 30:
+            over[d] = seen
+    if over:
+        raise AssertionError(f"(d) mixed sizes: memory_reserved grew past the first chunk's + "
+                             f"1 GiB on {over}")
+    return {d: [c[d] for c in by_chunk] for d in cards}
 
 
 def main():
@@ -5067,6 +5620,11 @@ def main():
         t_phase = time.perf_counter()
         launches_dp = dist_phase(out_root, smi)
         log(f"  phase 22: {time.perf_counter() - t_phase:.1f} s")
+        log("== phase 24: the fused path across frame sizes (youtube_vis, four raw sizes "
+            "alternating, grouped, streaming, growth; the YT-VIS CLI on a mixed-size set)")
+        t_phase = time.perf_counter()
+        mixed = mixed_size_phase(out_root, smi)
+        log(f"  phase 24: {time.perf_counter() - t_phase:.1f} s")
 
     replaces = {"cluster_points_single": "stemseg_tpu/ops/cluster_pallas.py:103",
                 "cluster_points_tiled": "stemseg_tpu/ops/cluster_pallas.py:300"}
@@ -5078,7 +5636,8 @@ def main():
                         "A bf16": launches_a16, "C bf16": launches_c16, "T bf16": launches_t16,
                         "CLI .ckpt": launches_cli, "CLI .pth (profiled)": launches_cli_pth,
                         **launches_eval,
-                        "--data_parallel A bf16 + run_batch (profiled)": launches_dp}
+                        "--data_parallel A bf16 + run_batch (profiled)": launches_dp,
+                        "mixed sizes fused (profiled)": mixed["launches"]}
     for path, numbers in fused.items():  # every window of these goes to the tiled kernel
         launches_by_path[f"{path} fused (profiled)"] = {
             "cluster_points_single": 0,
@@ -5094,6 +5653,8 @@ def main():
     kernels["cluster_points_tiled"]["real_windows"].update(
         {"A bf16": bf16_a["kernel_ms_real_window"], "C bf16": bf16_c["kernel_ms_real_window"]})
     kernels[real_t16[0]].setdefault("real_windows", {})["T bf16"] = real_t16[1]
+    for size, w in mixed["windows"].items():
+        kernels[w["kernel"]].setdefault("real_windows", {})[f"{size} mixed"] = w["kernel_ms"]
     keys = ("max_abs_err", "label_mismatches", "ms", "plain_ms", "bound_ms", "bound_by",
             "device_ms", "host_ms_per_call", "cold_l2_ms", "sync_floor_ms", "iterations",
             "points", "e_dims", "at_878592", f"at_{PATH_D_POINTS}_e3", f"at_{PATH_C2_POINTS}_e4",

@@ -37,10 +37,15 @@ once a sequence, eagerly. The pipeline keeps one device state: the buffers
 of the runs with the same input and frame sizes, T, K, compute dtype,
 semseg output type and fg threshold, sized for the longest sequence seen
 so far, and their graphs. A sequence of another key, or longer than the
-buffers, replaces the state (after a device synchronise) and warms and
-captures its bodies anew; sequences of one dataset (one frame size) share
-one state whatever their lengths. A failed capture or replay raises. On
-the CPU the same bodies run eagerly, with the plain versions of the
+buffers, replaces the state and warms and captures its bodies anew;
+sequences of one dataset (one frame size) share one state whatever their
+lengths. Every state of a pipeline captures into the pipeline's one graph
+memory pool, which outlives its states: a replacement synchronises the
+device, resets the old state's graphs and drops the state, and the blocks
+those graphs' captures used stay in the pool for the next state's
+captures, so a run that changes frame size at every sequence holds one
+state's graph memory, not one a state. A failed capture or replay raises.
+On the CPU the same bodies run eagerly, with the plain versions of the
 kernels.
 
 Parity: the labels equal the streaming path's bit for bit (the same raw id
@@ -282,9 +287,6 @@ class _State:
         self.fg = self.committed = self.lut = self.lut0 = None
         self.graphs: Dict[object, torch.cuda.CUDAGraph] = {}
         self.warm: set = set()
-        # the graphs' memory pool, shared by this state's graphs alone: a
-        # pool whose graphs are all gone is released and takes no new one
-        self.graph_pool = torch.cuda.graph_pool_handle() if self.frames.is_cuda else None
 
     # -- loading ------------------------------------------------------------
 
@@ -454,7 +456,7 @@ class _State:
             graph = torch.cuda.CUDAGraph()
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
-                graph.capture_begin(self.graph_pool, capture_error_mode="thread_local")
+                graph.capture_begin(self.pipe.graph_pool, capture_error_mode="thread_local")
                 try:
                     body()
                 except BaseException:
@@ -472,6 +474,32 @@ class _State:
             body()
         torch.cuda.current_stream().wait_stream(stream)
         self.warm.add(warm_key)
+
+    def release_graphs(self) -> None:
+        """Resets every graph of this state (the device must have finished
+        their replays): the blocks their captures used stay in the
+        pipeline's pool, free for the next captures into it."""
+        for graph in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
+
+
+def _graph_pool(stream: torch.cuda.Stream):
+    """A CUDA graph memory pool for every state of one pipeline, and what
+    keeps it open: the caching allocators (the device one and the page-
+    locked host one) refuse a capture into a pool whose graphs are all gone
+    (``use_count > 0``), so a graph of one fill of a scalar stays captured
+    into the pool for the pipeline's lifetime. Returns (pool, keeper)."""
+    pool = torch.cuda.graph_pool_handle()
+    scalar = torch.zeros(1, device=stream.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(stream.device):
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool, capture_error_mode="thread_local")
+            scalar.zero_()
+            graph.capture_end()
+    return pool, (graph, scalar)
 
 
 def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
@@ -511,12 +539,14 @@ class FusedSequencePipeline:
         self.states_made = 0  # device states made, and graphs captured, so far
         self.captures = 0
         self.stream: Optional[torch.cuda.Stream] = None
+        self.graph_pool = self._pool_keeper = None  # every state's graphs capture into it
         self._replicas: Dict[Tuple[int, torch.device], "FusedSequencePipeline"] = {}
         if engine.device.type == "cuda":
             from stemseg_tpu_torch.ops.cluster import prepare_records
 
             self.stream = torch.cuda.Stream(engine.device)
             prepare_records(self.stream)
+            self.graph_pool, self._pool_keeper = _graph_pool(self.stream)
 
     def _band(self, lookback: int) -> int:
         """Candidate-band width, rounded up to 2 look-back windows, so that a
@@ -552,6 +582,7 @@ class FusedSequencePipeline:
                 l_cap, w_cap = max(l_cap, old.l_cap), max(w_cap, old.w_cap)
             if self.engine.device.type == "cuda":  # replays may still read its buffers
                 torch.cuda.synchronize(self.engine.device)
+            old.release_graphs()
             self._state = old = None
         self._state = make(l_cap, w_cap)
         self.states_made += 1

@@ -40,7 +40,8 @@ device (``torch.cuda.device_count()``; with ``--device cpu``,
 ``num_frames`` frames are grouped by raw frame size and run in chunks of
 the device count through ``FusedSequencePipeline.run_batch``, each chunk's
 whole run under the "inference" timer; the shorter ones take the streaming
-path after them. The writers run on the main thread, in that order.
+path after them. The writers run on the main thread, in that order; the
+YT-VIS ``results.json`` still lists the sequences in the dataset's order.
 
 Config resolution: ``config.yaml`` beside the checkpoint if present, else
 the dataset's preset (``davis_2``, ``youtube_vis``, ``kitti_mots_2``); CLI
@@ -428,7 +429,8 @@ def main(argv=None):
     elif args.dataset == "ytvis":
         sequences, _ = parse_generic_video_dataset(
             YoutubeVISPaths.val_base_dir(), YoutubeVISPaths.val_vds_file())
-        output_generator = YoutubeVISOutputGenerator(output_dir, **writer_kw)
+        output_generator = YoutubeVISOutputGenerator(
+            output_dir, sequence_order=[s.id for s in sequences], **writer_kw)
         max_tracks = cfg.data.youtube_vis.max_inference_tracks
     else:
         sequences, _ = parse_generic_video_dataset(
@@ -458,10 +460,11 @@ def main(argv=None):
     output_generator.save()
     print(f"Results saved to {output_dir}")
     if generator.device.type == "cuda":
-        # the fused pipelines' CUDA graph pools stay cached after their graphs
-        # are gone, and the caching allocator cannot release them while a
-        # later capture allocates: an in-process caller (tools.eval_all) would
-        # fill the card run by run
+        # each fused pipeline's CUDA graph pool serves all its states, and
+        # goes with the pipeline; but a pool whose graphs are all gone stays
+        # cached, and the caching allocator cannot release it while a later
+        # pipeline's capture allocates: an in-process caller
+        # (tools.eval_all) would fill the card run by run
         del generator, model
         torch.cuda.empty_cache()
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 from zipfile import ZIP_DEFLATED, ZipFile
 
 import numpy as np
@@ -35,16 +35,22 @@ def _softmax(x: np.ndarray) -> np.ndarray:
 
 class YoutubeVISOutputGenerator:
     def __init__(self, output_dir: str, upscaled_inputs: bool = False,
-                 save_visualization: bool = False, device="cuda"):
+                 save_visualization: bool = False, device="cuda",
+                 sequence_order: Optional[Sequence[str]] = None):
         """:param upscaled_inputs: labels come at the network input scale
         :param save_visualization: taken from the CLI's ``--save_vis``; this
             writer writes no visualisation (nor does the JAX package's)
-        :param device: where the mask resize chain and the class vote run"""
+        :param device: where the mask resize chain and the class vote run
+        :param sequence_order: sequence ids in the order ``results.json``
+            lists their instances, whatever order the sequences ran in (the
+            CLI's ``--data_parallel`` runs them grouped by frame size); None:
+            the order they were processed, as the JAX package's writer"""
         self.device = resolve_device(device)
         os.makedirs(output_dir, exist_ok=True)
         self.output_dir = output_dir
         self.upscaled_inputs = upscaled_inputs
         self.instances: List[Dict] = []
+        self.sequence_rank = {sid: i for i, sid in enumerate(sequence_order or ())}
 
     def process_sequence(self, sequence, track_labels: np.ndarray,
                          instance_pt_counts: Dict[int, int],
@@ -96,7 +102,10 @@ class YoutubeVISOutputGenerator:
 
     def save(self):
         json_path = os.path.join(self.output_dir, "results.json")
+        last = len(self.sequence_rank)
+        instances = sorted(self.instances,  # stable: a sequence's tracks keep their order
+                           key=lambda inst: self.sequence_rank.get(inst["video_id"], last))
         with open(json_path, "w") as fh:
-            json.dump(self.instances, fh)
+            json.dump(instances, fh)
         with ZipFile(os.path.join(self.output_dir, "results.zip"), "w", ZIP_DEFLATED) as zf:
             zf.write(json_path, arcname="results.json")
