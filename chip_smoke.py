@@ -128,7 +128,7 @@ which raises on failure (the script then exits non-zero):
    upload to the dispatch's end under ``set_sync_debug_mode("error")``,
    steady overall fps in turns (streaming, fused, fused, streaming), and a
    profiled run of each (device busy share; the graph-replayed kernels'
-   launches, which the host counts do not see); last, one pass over DAVIS
+   launches); last, one pass over DAVIS
    2017 val's 30 sequence lengths (1,999 frames of 480x854, each sequence
    once, ``davis_2`` in bf16) on each path: labels equal, overall fps, peak
    memory, the fused pipeline's device states and captures;
@@ -970,15 +970,15 @@ def make_track_generator(cfg, dataset, model, out_dir, resize_embeddings=False,
 def fused_first_run_launches(n_windows):
     """Host launch counts of a kernel of pass B in a shape bucket's first
     fused run: the first window's call runs eagerly (one launch), the
-    second is captured into a CUDA graph (counted once), every later call
-    replays the graph (not counted; the profiler counts replays)."""
-    return min(n_windows, 2)
+    second is captured into a CUDA graph (no launch) and replayed, every
+    later call replays the graph; each replay counts the graph's launch."""
+    return n_windows
 
 
 def profiled_launches(fn, expect, tag, attempts=2):
     """Runs ``fn`` under torch.profiler and counts the device launches of
     the clustering kernels and the lsap kernel, graph replays included
-    (the wrappers' host counts see only eager launches and captures).
+    (the wrappers' host counts include replays too: ``ops.launches``).
     ``expect()``, read after each run, gives the counts it must find; a
     session that found others is run again (the profiler has been seen to
     lose a launch on the H100, see ``device_kernels``), and the last one
@@ -1779,9 +1779,8 @@ def real_training_path(tag, preset, steps, out_root, smi):
     for r in records:
         log(f"  path {tag} step {r['step']}: " + ", ".join(f"{k} {r[k]:.5f}" for k in keys))
     for k, interval in enumerate(intervals, start=2):
-        shapes = trainer.batch_shapes[(k - 1) * acc:k * acc]
         log(f"  path {tag} step {k}: {interval:.4f} s in the trainer ({smi}; after a checkpoint "
-            f"save: {(k - 1) % 2 == 0}), padded clips {[tuple(s[2:4]) for s in shapes]}")
+            f"save: {(k - 1) % 2 == 0})")
     log(f"  path {tag}: loader wait, first batch {waits[0]:.3f} s, then "
         f"{sum(waits[1:]) / max(len(waits) - 1, 1) * 1e3:.3f} ms mean, "
         f"{max(waits[1:], default=0.0) * 1e3:.3f} ms max over {len(waits) - 1} batches")
@@ -1837,7 +1836,7 @@ def train_then_infer_cli(trainer, out_root):
         n_points, cfg.clustering.max_instances, cfg.model.embeddings.embedding_size)
         else "cluster_points_tiled")
     other = ({"cluster_points_single", "cluster_points_tiled"} - {kernel}).pop()
-    # on the host: the first window's eager launch and the second's capture
+    # on the host: one launch a window, eager or replayed
     expect = fused_first_run_launches(n_windows)
     if host[kernel] != expect or host[other] or host["cluster_points_reference"]:
         raise AssertionError(f"R train -> infer: host launches {host}, expected {expect} "
@@ -2378,9 +2377,9 @@ def cli_rest_phase(out_root, smi):
         seen["launches"] = dict(launch_counts)
         seen["printed"] = printed.getvalue().splitlines()
         runs[kind] = seen
-        # with no flag the CLI takes the fused path (on the host: the first
-        # window's eager launch and the second's capture), with
-        # --profile_clustering the streaming one
+        # with no flag the CLI takes the fused path (on the host: one launch
+        # a window, eager or replayed), with --profile_clustering the
+        # streaming one
         expect = (fused_first_run_launches(seen["n_windows"]) if kind == "pth"
                   else seen["n_windows"])
         tiled = seen["launches"]["cluster_points_tiled"]

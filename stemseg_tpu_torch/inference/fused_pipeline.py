@@ -58,6 +58,15 @@ host path; the two can disagree only where two assignments' total costs
 differ by less than float32's epsilon. Sequences shorter than T (a window
 with repeated frames) take the streaming path in the caller.
 
+Tracing (``utils.profiling``, while a profiler records): a run is the span
+``fused.run`` (its id the pipeline's run number) around ``fused.new_state``
+(when it makes a state), ``fused.load``, ``fused.prelude``, one
+``fused.scan_a`` a window, ``fused.derive``, one ``fused.scan_b`` a window
+(these four also timed on the stream), ``fused.fetch`` and
+``fused.track_stats``; the counters ``fused.captures`` and
+``fused.replays`` count the graphs captured and replayed. The spans wrap
+the calls that capture or replay a body, never the body.
+
 Data parallel (``run_batch``, the inference CLI's ``--data_parallel``): one
 sequence per device, each through a pipeline of its own (a replica of the
 model, its own engine, device state and capture stream on that device),
@@ -81,6 +90,8 @@ from stemseg_tpu_torch.inference.chainer import _intersection_counts, track_stat
 from stemseg_tpu_torch.inference.clustering import ClusterParams, cluster_window
 from stemseg_tpu_torch.inference.engine import InferenceEngine, derive_masks, upscale_window
 from stemseg_tpu_torch.inference.lsap import lsa_masked
+from stemseg_tpu_torch.ops import launches
+from stemseg_tpu_torch.utils.profiling import count, span
 
 # index arrays of a schedule, packed into one int64 buffer on the device
 _SCHEDULE_KEYS = ("new_ids", "write_rows", "write_rows2", "win_start", "prelude_rows",
@@ -286,6 +297,7 @@ class _State:
         self.rings = self.acc = self.cnt = self.embs = self.bws = self.seeds = None
         self.fg = self.committed = self.lut = self.lut0 = None
         self.graphs: Dict[object, torch.cuda.CUDAGraph] = {}
+        self.launches: Dict[object, list] = {}  # the kernels each graph launches
         self.warm: set = set()
 
     # -- loading ------------------------------------------------------------
@@ -455,7 +467,7 @@ class _State:
             # allocators (device and page-locked host) at every capture
             graph = torch.cuda.CUDAGraph()
             stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), launches.captured() as launched:
                 graph.capture_begin(self.pipe.graph_pool, capture_error_mode="thread_local")
                 try:
                     body()
@@ -465,9 +477,13 @@ class _State:
                     raise
                 graph.capture_end()
             self.graphs[name] = graph
+            self.launches[name] = launched
             self.pipe.captures += 1
+            count("fused.captures")
         if graph is not None:
             graph.replay()
+            launches.replayed(self.launches[name])
+            count("fused.replays")
             return
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -482,6 +498,7 @@ class _State:
         for graph in self.graphs.values():
             graph.reset()
         self.graphs.clear()
+        self.launches.clear()
 
 
 def _graph_pool(stream: torch.cuda.Stream):
@@ -536,8 +553,9 @@ class FusedSequencePipeline:
         self.cluster_full_scale = cluster_full_scale
         self._schedule_cache: Dict = {}
         self._state: Optional[_State] = None
-        self.states_made = 0  # device states made, and graphs captured, so far
+        self.states_made = 0  # device states made, graphs captured and runs, so far
         self.captures = 0
+        self.runs = 0
         self.stream: Optional[torch.cuda.Stream] = None
         self.graph_pool = self._pool_keeper = None  # every state's graphs capture into it
         self._replicas: Dict[Tuple[int, torch.device], "FusedSequencePipeline"] = {}
@@ -576,15 +594,16 @@ class FusedSequencePipeline:
         old = self._state
         if old is not None and old.key == key and old.l_cap >= l_pad and old.w_cap >= w_pad:
             return old
-        l_cap, w_cap = l_pad, w_pad
-        if old is not None:
-            if old.key == key:
-                l_cap, w_cap = max(l_cap, old.l_cap), max(w_cap, old.w_cap)
-            if self.engine.device.type == "cuda":  # replays may still read its buffers
-                torch.cuda.synchronize(self.engine.device)
-            old.release_graphs()
-            self._state = old = None
-        self._state = make(l_cap, w_cap)
+        with span("fused.new_state"):
+            l_cap, w_cap = l_pad, w_pad
+            if old is not None:
+                if old.key == key:
+                    l_cap, w_cap = max(l_cap, old.l_cap), max(w_cap, old.w_cap)
+                if self.engine.device.type == "cuda":  # replays may still read its buffers
+                    torch.cuda.synchronize(self.engine.device)
+                old.release_graphs()
+                self._state = old = None
+            self._state = make(l_cap, w_cap)
         self.states_made += 1
         return self._state
 
@@ -629,37 +648,47 @@ class FusedSequencePipeline:
         resize_hw = tuple(resize_hw) if resize_hw is not None else frame_shape[:2]
         key = (resize_hw, frame_shape, t_win, k, self.engine.model.compute_dtype,
                semseg_output_type, seediness_fg_threshold)
-        state = self._state_for(key, l_pad, w_pad, lambda l_cap, w_cap: _State(
-            self, key, frame_shape, resize_hw, l_cap, w_cap, t_win, semseg_output_type,
-            seediness_fg_threshold))
-        sched = self._schedule(windows, k, state.l_cap, state.w_cap)
-        band = self._band(sched.lookback)
+        cuda = self.engine.device.type == "cuda"
+        self.runs += 1
+        with span("fused.run", ident=self.runs):
+            state = self._state_for(key, l_pad, w_pad, lambda l_cap, w_cap: _State(
+                self, key, frame_shape, resize_hw, l_cap, w_cap, t_win, semseg_output_type,
+                seediness_fg_threshold))
+            sched = self._schedule(windows, k, state.l_cap, state.w_cap)
+            band = self._band(sched.lookback)
 
-        state.load(frames, sched, l_pad)
-        state.call("prelude")
-        for i in range(sched.w_real):
-            state.call(("scan_a", sched.n_new[i]), i)
-        mc = state.derive(l_pad)
-        for i in range(sched.w_real):
-            state.call(("scan_b", band), i)
-        # int16 transport whenever the ids fit (halves the label fetch)
-        labels = state.committed[:l_pad].to(
-            torch.int16 if w_pad * k + 1 < 2 ** 15 else torch.int32, copy=True)
-        fg = state.fg[:l_pad]
+            with span("fused.load"):
+                state.load(frames, sched, l_pad)
+            with span("fused.prelude", device=cuda):
+                state.call("prelude")
+            for i in range(sched.w_real):
+                with span("fused.scan_a", device=cuda):
+                    state.call(("scan_a", sched.n_new[i]), i)
+            with span("fused.derive", device=cuda):
+                mc = state.derive(l_pad)
+            for i in range(sched.w_real):
+                with span("fused.scan_b", device=cuda):
+                    state.call(("scan_b", band), i)
+            # int16 transport whenever the ids fit (halves the label fetch)
+            labels = state.committed[:l_pad].to(
+                torch.int16 if w_pad * k + 1 < 2 ** 15 else torch.int32, copy=True)
+            fg = state.fg[:l_pad]
 
-        if device_outputs:
-            return labels, None, None, fg.clone(), mc
-        fetch = [labels, fg]
-        want_mc = fetch_multiclass and mc is not None
-        if want_mc:
-            fetch.append(mc)
-        kept_mc = mc[:t_total] if mc is not None and not want_mc else None
-        fetched = _fetch(fetch)
-        labels = fetched[0][:t_total].astype(np.int32)
-        fg = fetched[1][:t_total]
-        multiclass = fetched[2][:t_total] if want_mc else kept_mc
-        counts, lifetimes = track_stats(labels)
-        return labels, counts, lifetimes, fg, multiclass
+            if device_outputs:
+                return labels, None, None, fg.clone(), mc
+            fetch = [labels, fg]
+            want_mc = fetch_multiclass and mc is not None
+            if want_mc:
+                fetch.append(mc)
+            kept_mc = mc[:t_total] if mc is not None and not want_mc else None
+            with span("fused.fetch"):
+                fetched = _fetch(fetch)
+                labels = fetched[0][:t_total].astype(np.int32)
+            fg = fetched[1][:t_total]
+            multiclass = fetched[2][:t_total] if want_mc else kept_mc
+            with span("fused.track_stats"):
+                counts, lifetimes = track_stats(labels)
+            return labels, counts, lifetimes, fg, multiclass
 
     def replica(self, slot: int, device) -> "FusedSequencePipeline":
         """The pipeline of ``run_batch``'s slot ``slot`` on ``device``: this one

@@ -24,6 +24,7 @@ from stemseg_tpu_torch.inference.output_utils.common import (
     to_device,
 )
 from stemseg_tpu_torch.utils.device import resolve_device
+from stemseg_tpu_torch.utils.profiling import span
 from stemseg_tpu_torch.utils.vis import create_color_map, overlay_mask_on_image
 
 
@@ -55,32 +56,33 @@ class DavisOutputGenerator:
 
         if max_tracks >= 256:
             raise ValueError("DAVIS PNGs index at most 255 tracks")
-        image_dims = tuple(sequence.image_dims)
-        kept = select_instances_to_keep(instance_lifetimes, OUTLIER_LABEL, max_tracks)
-        cmap = create_color_map().flatten()
-        labels_dev = to_device(track_labels, self.device)
-        kept_dev = torch.tensor(kept, dtype=labels_dev.dtype,
-                                device=self.device).view(-1, 1, 1)
-
-        seq_results_dir = os.path.join(self.results_output_dir, str(sequence.id))
-        os.makedirs(seq_results_dir, exist_ok=True)
-        index_maps = []
-        for t in range(track_labels.shape[0]):
-            condensed = np.zeros(image_dims, np.uint8)
-            if kept:
-                full = masks_to_original_dims(
-                    labels_dev[t][None] == kept_dev, mask_scale, image_dims,
-                    min_dim, max_dim, self.upscaled_inputs).cpu().numpy()
-                for n in range(len(kept)):  # later kept ids overwrite
-                    condensed[full[n]] = n + 1
-            img = Image.fromarray(condensed)
-            img.putpalette(cmap)
-            img.save(os.path.join(seq_results_dir, f"{t:05d}.png"))
+        with span("writer.sequence", ident=sequence.id):
+            image_dims = tuple(sequence.image_dims)
+            kept = select_instances_to_keep(instance_lifetimes, OUTLIER_LABEL, max_tracks)
+            cmap = create_color_map().flatten()
+            labels_dev = to_device(track_labels, self.device)
+            kept_dev = torch.tensor(kept, dtype=labels_dev.dtype,
+                                    device=self.device).view(-1, 1, 1)
+            seq_results_dir = os.path.join(self.results_output_dir, str(sequence.id))
+            os.makedirs(seq_results_dir, exist_ok=True)
+            index_maps = []
+            for t in range(track_labels.shape[0]):
+                with span("writer.resize"):  # the frame's device work and its fetch
+                    full = masks_to_original_dims(
+                        labels_dev[t][None] == kept_dev, mask_scale, image_dims,
+                        min_dim, max_dim, self.upscaled_inputs).cpu().numpy() if kept else None
+                with span("writer.encode"):  # its host work
+                    condensed = np.zeros(image_dims, np.uint8)
+                    for n in range(len(kept)):  # later kept ids overwrite
+                        condensed[full[n]] = n + 1
+                    img = Image.fromarray(condensed)
+                    img.putpalette(cmap)
+                    img.save(os.path.join(seq_results_dir, f"{t:05d}.png"))
+                if self.save_visualization:
+                    index_maps.append(condensed)
             if self.save_visualization:
-                index_maps.append(condensed)
-        if self.save_visualization:
-            self._save_visualizations(sequence, index_maps)
-        return kept
+                self._save_visualizations(sequence, index_maps)
+            return kept
 
     def _save_visualizations(self, sequence, index_maps: List[np.ndarray]):
         import cv2

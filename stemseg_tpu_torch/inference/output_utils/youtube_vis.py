@@ -26,6 +26,7 @@ from stemseg_tpu_torch.inference.output_utils.common import (
 )
 from stemseg_tpu_torch.utils import rle as rle_codec
 from stemseg_tpu_torch.utils.device import resolve_device
+from stemseg_tpu_torch.utils.profiling import span
 
 
 def _softmax(x: np.ndarray) -> np.ndarray:
@@ -63,49 +64,55 @@ class YoutubeVISOutputGenerator:
         """
         if max_tracks >= 256:
             raise ValueError("at most 255 tracks a sequence")
-        image_dims = tuple(sequence.image_dims)
-        kept = select_instances_to_keep(instance_lifetimes, OUTLIER_LABEL, max_tracks)
-        if not kept:
-            print(f"No instances detected for sequence {sequence.id}")
-            return []
-        max_pts = float(max(instance_pt_counts[i] for i in kept))
+        with span("writer.sequence", ident=sequence.id):
+            image_dims = tuple(sequence.image_dims)
+            kept = select_instances_to_keep(instance_lifetimes, OUTLIER_LABEL, max_tracks)
+            if not kept:
+                print(f"No instances detected for sequence {sequence.id}")
+                return []
+            max_pts = float(max(instance_pt_counts[i] for i in kept))
+            labels_dev = to_device(track_labels, self.device)
+            logits = to_device(category_masks, self.device)
+            kept_dev = torch.tensor(kept, dtype=labels_dev.dtype,
+                                    device=self.device).view(-1, 1, 1)
+            logit_sums = torch.zeros((len(kept), logits.shape[-1] - 1), dtype=torch.float32,
+                                     device=self.device)
+            areas = torch.zeros(len(kept), dtype=torch.int64, device=self.device)
+            rle_masks: List[List[Dict]] = [[] for _ in kept]
+            for t in range(track_labels.shape[0]):
+                with span("writer.resize"):  # the frame's device work and its fetch
+                    onehot = labels_dev[t][None] == kept_dev  # [K, h, w]
+                    flat = onehot.reshape(len(kept), -1)
+                    areas += flat.sum(dim=1)
+                    logit_sums += flat.float() @ logits[t][..., 1:].reshape(
+                        flat.shape[1], -1).float()
+                    full = masks_to_original_dims(onehot, mask_scale, image_dims, min_dim,
+                                                  max_dim, self.upscaled_inputs).cpu().numpy()
+                with span("writer.encode"):  # its host work
+                    for k in range(len(kept)):
+                        enc = rle_codec.encode(full[k].astype(np.uint8))
+                        enc["counts"] = enc["counts"].decode("utf-8")
+                        rle_masks[k].append(enc)
 
-        labels_dev = to_device(track_labels, self.device)
-        logits = to_device(category_masks, self.device)
-        kept_dev = torch.tensor(kept, dtype=labels_dev.dtype, device=self.device).view(-1, 1, 1)
-        logit_sums = torch.zeros((len(kept), logits.shape[-1] - 1), dtype=torch.float32,
-                                 device=self.device)
-        areas = torch.zeros(len(kept), dtype=torch.int64, device=self.device)
-        rle_masks: List[List[Dict]] = [[] for _ in kept]
-        for t in range(track_labels.shape[0]):
-            onehot = labels_dev[t][None] == kept_dev  # [K, h, w]
-            flat = onehot.reshape(len(kept), -1)
-            areas += flat.sum(dim=1)
-            logit_sums += flat.float() @ logits[t][..., 1:].reshape(flat.shape[1], -1).float()
-            full = masks_to_original_dims(onehot, mask_scale, image_dims, min_dim, max_dim,
-                                          self.upscaled_inputs).cpu().numpy()
-            for k in range(len(kept)):
-                enc = rle_codec.encode(full[k].astype(np.uint8))
-                enc["counts"] = enc["counts"].decode("utf-8")
-                rle_masks[k].append(enc)
-
-        logit_sums, areas = logit_sums.cpu().numpy(), areas.cpu().numpy()
-        for k, iid in enumerate(kept):
-            probs = _softmax(logit_sums[k] / max(float(areas[k]), 1.0))
-            self.instances.append({
-                "video_id": sequence.id,
-                "score": instance_pt_counts[iid] / max_pts,
-                "category_id": int(np.argmax(probs)) + 1,
-                "segmentations": rle_masks[k],
-            })
-        return kept
+            logit_sums, areas = logit_sums.cpu().numpy(), areas.cpu().numpy()
+            for k, iid in enumerate(kept):
+                probs = _softmax(logit_sums[k] / max(float(areas[k]), 1.0))
+                self.instances.append({
+                    "video_id": sequence.id,
+                    "score": instance_pt_counts[iid] / max_pts,
+                    "category_id": int(np.argmax(probs)) + 1,
+                    "segmentations": rle_masks[k],
+                })
+            return kept
 
     def save(self):
-        json_path = os.path.join(self.output_dir, "results.json")
-        last = len(self.sequence_rank)
-        instances = sorted(self.instances,  # stable: a sequence's tracks keep their order
-                           key=lambda inst: self.sequence_rank.get(inst["video_id"], last))
-        with open(json_path, "w") as fh:
-            json.dump(instances, fh)
-        with ZipFile(os.path.join(self.output_dir, "results.zip"), "w", ZIP_DEFLATED) as zf:
-            zf.write(json_path, arcname="results.json")
+        with span("writer.save"):
+            json_path = os.path.join(self.output_dir, "results.json")
+            last = len(self.sequence_rank)
+            instances = sorted(self.instances,  # stable: a sequence's tracks keep their order
+                               key=lambda inst: self.sequence_rank.get(inst["video_id"], last))
+            with open(json_path, "w") as fh:
+                json.dump(instances, fh)
+            with ZipFile(os.path.join(self.output_dir, "results.zip"), "w",
+                         ZIP_DEFLATED) as zf:
+                zf.write(json_path, arcname="results.json")

@@ -24,12 +24,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Dict, Tuple
 
 import torch
 
-from stemseg_tpu_torch.ops import build
+from stemseg_tpu_torch.ops import build, launches
 
 K_PAD = 32
 META_COLS = 128
@@ -43,17 +42,14 @@ MAX_E_DIMS = 8
 FIXED_SMEM = 4096
 RING_BYTES_PER_COLUMN = 4 * 1024 * 4
 
-# launches per wrapper (the plain version counts its calls)
+# launches per wrapper, as executions on the device (a CUDA graph's count
+# at each replay: ``ops.launches``); the plain version counts its calls
 launch_counts = {"cluster_points_single": 0, "cluster_points_tiled": 0,
                  "cluster_points_reference": 0}
 
 
-_COUNT_LOCK = threading.Lock()  # run_batch's host threads launch concurrently
-
-
 def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        launch_counts[name] += 1
+    launches.bump(launch_counts, name)
 
 
 def reset_launch_counts() -> None:

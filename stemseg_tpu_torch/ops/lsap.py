@@ -16,25 +16,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Optional, Tuple
 
 import torch
 
-from stemseg_tpu_torch.ops import build
+from stemseg_tpu_torch.ops import build, launches
 
 MAX_SIDE = 1024  # csrc/lsap.cu kMaxSide
 
-# launches of the kernel's wrapper (the plain version counts its calls)
+# launches of the kernel's wrapper, as executions on the device (a CUDA graph's count
+# at each replay: ``ops.launches``); the plain version counts its calls
 launch_counts = {"lsa_masked": 0, "lsa_masked_reference": 0}
 
 
-_COUNT_LOCK = threading.Lock()  # run_batch's host threads launch concurrently
-
-
 def _count(name: str) -> None:
-    with _COUNT_LOCK:
-        launch_counts[name] += 1
+    launches.bump(launch_counts, name)
 
 
 def reset_launch_counts() -> None:

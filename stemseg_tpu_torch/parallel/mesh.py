@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from stemseg_tpu_torch.utils.distributed import get_world_size, is_initialized
+from stemseg_tpu_torch.utils.profiling import span
 
 
 def replicate(model: torch.nn.Module) -> None:
@@ -54,8 +55,9 @@ def shard_batch(global_indices: Sequence[int], rank: int, world: int) -> List[in
 
 def all_reduce_sum_(tensors: Iterable[torch.Tensor]) -> None:
     """Sum ``tensors`` over the ranks, in place: per dtype one flat bucket
-    (one ``torch.cat``), one ``dist.all_reduce``, and a copy back. A no-op
-    without a process group."""
+    (one ``torch.cat``, the span ``all_reduce.pack``), one
+    ``dist.all_reduce`` (``all_reduce.exchange``), and a copy back
+    (``all_reduce.unpack``). A no-op without a process group."""
     if not is_initialized():
         return
     by_dtype = {}
@@ -63,9 +65,12 @@ def all_reduce_sum_(tensors: Iterable[torch.Tensor]) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     with torch.no_grad():
         for group in by_dtype.values():
-            flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat)
-            offset = 0
-            for t in group:
-                t.copy_(flat[offset:offset + t.numel()].view_as(t))
-                offset += t.numel()
+            with span("all_reduce.pack"):
+                flat = torch.cat([t.reshape(-1) for t in group])
+            with span("all_reduce.exchange"):
+                dist.all_reduce(flat)
+            with span("all_reduce.unpack"):
+                offset = 0
+                for t in group:
+                    t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                    offset += t.numel()

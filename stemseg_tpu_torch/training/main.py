@@ -113,11 +113,9 @@ class Trainer:
         self.elapsed_iterations = 0
         self.total_iterations = cfg.training.max_iterations
         # host clock at the end of each optimizer step, and the loader's
-        # wait (seconds) and padded image shape per micro-batch, for
-        # throughput reports
+        # wait (seconds) per micro-batch, for throughput reports
         self.iteration_end_times = []
         self.loader_waits = []
-        self.batch_shapes = []
 
         restore_path = args.restore_session
         if restore_path is None and not args.no_resume:
@@ -202,7 +200,7 @@ class Trainer:
     def start(self):
         from stemseg_tpu_torch.training.interrupt import InterruptException
         from stemseg_tpu_torch.training.loader import to_device
-        from stemseg_tpu_torch.utils.profiling import start_trace, write_trace
+        from stemseg_tpu_torch.utils.profiling import span, start_trace, write_trace
 
         self.interrupt.start()
         host_batches = iter(self.make_loader(self.args.num_cpu_workers))
@@ -217,11 +215,11 @@ class Trainer:
         try:
             while self.elapsed_iterations < self.total_iterations:
                 t_wait = time.perf_counter()
-                host_batch = next(host_batches, None)
+                with span("train.loader"):
+                    host_batch = next(host_batches, None)
                 self.loader_waits.append(time.perf_counter() - t_wait)
                 if host_batch is None:
                     break
-                self.batch_shapes.append(tuple(host_batch["images"].shape))
                 if (self.args.profile and self.is_main and profiler is None
                         and sub_iter >= self.accumulate_steps):
                     profiler = start_trace(self.device)

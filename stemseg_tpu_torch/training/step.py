@@ -30,6 +30,13 @@ inside each micro-step, before ``optax.MultiSteps`` averages them. So
 ``grad_norm`` and the logged terms are the global batch's. The heads use
 FrozenBN and GroupNorm only: no batch statistics need syncing.
 
+Tracing (``utils.profiling``, while a profiler records): a micro-step is
+the span ``step`` (its id the micro-step's number, counted from 1) around
+``step.forward``, ``step.loss``, ``step.backward``, ``step.all_reduce``
+(with a process group), ``step.accumulate`` (the gradient's norm and its
+running mean) and ``step.update`` (when the update is due), each also
+timed on the CUDA stream.
+
 Batch contract (device tensors): ``images`` [N, T, H, W, 3] float32,
 normalised, padded to /32; ``masks`` [N, I, T, H, W] uint8 (padded
 instance axis); ``ignore_masks`` [N, T, H, W] uint8; ``category_ids``
@@ -54,6 +61,7 @@ from stemseg_tpu_torch.parallel import all_reduce_sum_
 from stemseg_tpu_torch.training.optim import clip_by_global_norm_, global_norm
 from stemseg_tpu_torch.utils.constants import LossConsts
 from stemseg_tpu_torch.utils.distributed import all_reduce_ints, get_world_size, is_initialized
+from stemseg_tpu_torch.utils.profiling import span
 
 
 def _downscale_binary(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -152,6 +160,8 @@ class TrainStep:
             self.loss_fn = make_output_loss_fn(cfg)
         self.clip = cfg.training.clip_gradients
         self.micro_step = 0
+        self.calls = 0  # micro-steps run, the ``step`` spans' ids
+        self.cuda = bool(self.params) and self.params[0].is_cuda
 
     def accumulate(self, grads) -> None:
         k = self.micro_step
@@ -176,15 +186,25 @@ class TrainStep:
         self.micro_step = 0
 
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
-        out = self.model(batch["images"].permute(0, 1, 4, 2, 3))
-        total, metrics = self.loss_fn(out, batch)
-        grads = torch.autograd.grad(total, self.params, allow_unused=True,
-                                    materialize_grads=True)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if self.distributed:  # (terms may share storage: "total" is the embedding loss's)
-            metrics = {k: v.clone() for k, v in metrics.items()}
-            all_reduce_sum_([*grads, *metrics.values()])
-        metrics["grad_norm"] = global_norm(grads)
-        self.accumulate(grads)
-        self.update()
-        return metrics
+        self.calls += 1
+        cuda = self.cuda
+        with span("step", ident=self.calls):
+            with span("step.forward", device=cuda):
+                out = self.model(batch["images"].permute(0, 1, 4, 2, 3))
+            with span("step.loss", device=cuda):
+                total, metrics = self.loss_fn(out, batch)
+            with span("step.backward", device=cuda):
+                grads = torch.autograd.grad(total, self.params, allow_unused=True,
+                                            materialize_grads=True)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if self.distributed:  # (terms may share storage: "total" is the embedding loss's)
+                with span("step.all_reduce", device=cuda):
+                    metrics = {k: v.clone() for k, v in metrics.items()}
+                    all_reduce_sum_([*grads, *metrics.values()])
+            with span("step.accumulate", device=cuda):
+                metrics["grad_norm"] = global_norm(grads)
+                self.accumulate(grads)
+            if self.micro_step >= self.accumulate_steps:
+                with span("step.update", device=cuda):
+                    self.update()
+            return metrics

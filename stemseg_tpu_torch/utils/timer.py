@@ -1,6 +1,7 @@
 """Named wall-clock timers with inclusion/exclusion decorators.
 
-``log_duration(name)`` accumulates a function's wall time under ``name``;
+``log_duration(name)`` accumulates a function's wall time under ``name``
+and marks the call as the span ``cli.<name>`` (``utils.profiling``);
 ``exclude_duration(*names)`` subtracts the wrapped call's wall time from
 those of the given timers that are open around the call (a ``log_duration``
 of that name is running), so that image I/O inside a timed phase stays out
@@ -15,6 +16,8 @@ import functools
 import time
 from collections import defaultdict
 from typing import Dict
+
+from stemseg_tpu_torch.utils.profiling import span
 
 
 class Timer:
@@ -36,7 +39,8 @@ class Timer:
                 cls._open[name] += 1
                 t0 = time.perf_counter()
                 try:
-                    return fn(*args, **kwargs)
+                    with span("cli." + name):
+                        return fn(*args, **kwargs)
                 finally:
                     cls._durations[name] += time.perf_counter() - t0
                     cls._open[name] -= 1

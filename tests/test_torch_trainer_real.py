@@ -111,7 +111,9 @@ def test_trainer_runs_davis_mode(env, tmp_path):
     assert trainer.elapsed_iterations == 2 and trainer.accumulate_steps == 4
     assert sorted(os.listdir(tmp_path / "run")) == ["000002.pth", "config.yaml", "logs"]
     # COCO and VOC clips pad to 64x96 like DAVIS and YT-VIS at this size
-    assert trainer.batch_shapes == [(1, 2, 64, 96, 3)] * 8
+    loader = trainer.make_loader(0)
+    loader.batch_sampler.start_iter = 0  # the run's whole stream
+    assert [tuple(b["images"].shape) for b in loader] == [(1, 2, 64, 96, 3)] * 8
     with open(tmp_path / "run" / "logs" / "metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
     assert [r["step"] for r in records] == [2]
