@@ -7,10 +7,12 @@ the kernels' launch counts on the fused path on a card.
 * On, under a ``torch.profiler`` session: the fused path's, the writer's
   and the train step's spans have the names, order, parents and ids the
   modules document, one ``writer.resize`` and one ``writer.encode`` a
-  frame; each record lies inside the profiler's ``stemseg.*`` event of the
-  same name (to within 2 ms), the two under 2 ms apart in the median; a
-  session's records replace the session before's, back to back too;
-  ``write_trace`` prints the totals and counters.
+  frame (every frame's enqueue, then the waits), ``writer.pooled_frames``
+  counting the frames; each record lies inside the profiler's
+  ``stemseg.*`` event of the same name (to within 2 ms), the two under
+  2 ms apart in the median; a session's records replace the session
+  before's, back to back too; ``write_trace`` prints the totals and
+  counters.
 * On a card (``card``): a fused run's ``launch_counts`` equal the
   clustering and lsap kernels' launches in a profiler trace of the same
   run, graph replays included, and the device spans read stream times.
@@ -192,7 +194,8 @@ def test_fused_run_spans_names_order_parents_and_ids(fused_session):
     children = [s for s in spans if s["parent"] == run["index"]]
     assert run["self_ms"] == pytest.approx(run["host_ms"] - sum(c["host_ms"] for c in children))
     assert all(s["stream_ms"] is None for s in spans)  # host-only on the CPU
-    assert records["counters"] == {}  # no graph on the CPU
+    # no graph on the CPU: the writer's is the only counter
+    assert records["counters"] == {"writer.pooled_frames": 2 * FRAMES}
 
 
 def test_writer_spans_one_resize_and_one_encode_a_frame(fused_session):
@@ -201,10 +204,13 @@ def test_writer_spans_one_resize_and_one_encode_a_frame(fused_session):
     for seq_id in ("a", "b"):
         seq = [s for s in spans if s["top"] == seq_id]
         assert seq[0]["name"] == "writer.sequence" and seq[0]["parent"] is None
-        assert [s["name"] for s in seq[1:]] == ["writer.resize", "writer.encode"] * FRAMES
+        # every frame enqueued, then the wait for each frame's file
+        assert [s["name"] for s in seq[1:]] == (["writer.resize"] * FRAMES
+                                                + ["writer.encode"] * FRAMES)
         assert all(s["parent"] == seq[0]["index"] for s in seq[1:])
     order = [s["name"] for s in spans if s["parent"] is None]
     assert order == ["cli.inference", "writer.sequence"] * 2
+    assert records["counters"]["writer.pooled_frames"] == 2 * FRAMES
 
 
 def test_train_step_spans_names_order_parents_and_ids(step_session):
