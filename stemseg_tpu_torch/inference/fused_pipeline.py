@@ -48,6 +48,20 @@ state's graph memory, not one a state. A failed capture or replay raises.
 On the CPU the same bodies run eagerly, with the plain versions of the
 kernels.
 
+Memory: a body's eager warm-up leaves its intermediates cached in the
+caching allocator's general pool, and its capture then allocates the same
+working set again in the graph pool, whose blocks no eager work can use.
+So a run that warmed a body up (every run on a new state does) gives the
+allocator's free blocks back to the card once, after the fetch has waited
+for the card (``torch.cuda.empty_cache``); a run that only replays
+releases nothing. A state's buffers live in a memory pool of the state's
+own, so that no live buffer keeps freed intermediates in its segment;
+they and the graph pool, which its keeper holds open, stay; a dropped
+state's pool goes back to the card at once. A release frees the free
+blocks of every device and must not run while another thread captures
+(``run_batch``'s slots may share a device), so releases, captures and the
+drop of a state take one lock for the process.
+
 Parity: the labels equal the streaming path's bit for bit (the same raw id
 blocks; the fold is ``chainer.fold_and_associate``'s: intersection counts
 per global id equal the summed per-raw counts because the committed chunks'
@@ -63,9 +77,11 @@ Tracing (``utils.profiling``, while a profiler records): a run is the span
 (when it makes a state), ``fused.load``, ``fused.prelude``, one
 ``fused.scan_a`` a window, ``fused.derive``, one ``fused.scan_b`` a window
 (these four also timed on the stream), ``fused.fetch`` and
-``fused.track_stats``; the counters ``fused.captures`` and
-``fused.replays`` count the graphs captured and replayed. The spans wrap
-the calls that capture or replay a body, never the body.
+``fused.track_stats``, and on a CUDA device ``fused.release`` around a
+run's release (after ``fused.fetch``); the counters ``fused.captures``,
+``fused.replays`` and ``fused.cache_releases`` count the graphs captured
+and replayed and the releases. The spans wrap the calls that capture or
+replay a body, never the body.
 
 Data parallel (``run_batch``, the inference CLI's ``--data_parallel``): one
 sequence per device, each through a pipeline of its own (a replica of the
@@ -92,6 +108,9 @@ from stemseg_tpu_torch.inference.engine import InferenceEngine, derive_masks, up
 from stemseg_tpu_torch.inference.lsap import lsa_masked
 from stemseg_tpu_torch.ops import launches
 from stemseg_tpu_torch.utils.profiling import count, span
+
+# held by each capture and each cache release (module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 # index arrays of a schedule, packed into one int64 buffer on the device
 _SCHEDULE_KEYS = ("new_ids", "write_rows", "write_rows2", "win_start", "prelude_rows",
@@ -269,7 +288,10 @@ class _State:
     K, compute dtype, semseg output type, fg threshold): the uploaded frames
     and schedule, the rings, accumulators, per-window outputs, fg masks,
     committed volume and ``lut``, sized for ``l_cap`` frames and ``w_cap``
-    windows, and the CUDA graph of each per-window body."""
+    windows, and the CUDA graph of each per-window body. On a card the
+    buffers live in a memory pool of the state's own: in a segment of the
+    general pool a live buffer would keep a body's freed intermediates
+    beside it from going back to the card."""
 
     def __init__(self, pipe: "FusedSequencePipeline", key, frame_shape, resize_hw,
                  l_cap: int, w_cap: int, t_win: int, semseg_output_type: str,
@@ -285,12 +307,19 @@ class _State:
         self.ring_rows = 3 * t_win
         self.semseg_output_type = semseg_output_type
         self.threshold = threshold
-        self.frames = torch.zeros((l_cap,) + tuple(frame_shape), dtype=torch.uint8, device=dev)
-        self.sched = self.views = None
-        self.win_idx = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.device = dev
+        self.mem_pool = None
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                self.mem_pool = torch.cuda.MemPool()
         k = pipe.cluster_params.max_instances
-        self.t_iota = torch.arange(t_win, device=dev)
-        self.k_iota = torch.arange(k, dtype=torch.int32, device=dev)
+        with self.buffers():
+            self.frames = torch.zeros((l_cap,) + tuple(frame_shape), dtype=torch.uint8,
+                                      device=dev)
+            self.win_idx = torch.zeros(1, dtype=torch.int64, device=dev)
+            self.t_iota = torch.arange(t_win, device=dev)
+            self.k_iota = torch.arange(k, dtype=torch.int32, device=dev)
+        self.sched = self.views = None
         self.band_iotas: Dict[int, torch.Tensor] = {}
         self.n_lut = w_cap * k + 2  # slot n_lut - 1 is never an id: the band's trash
         # made by the bodies' first (eager) run, so never inside a capture
@@ -300,6 +329,13 @@ class _State:
         self.launches: Dict[object, list] = {}  # the kernels each graph launches
         self.warm: set = set()
 
+    def buffers(self):
+        """The context of every allocation of the state's buffers: its
+        memory pool on a card."""
+        if self.mem_pool is None:
+            return contextlib.nullcontext()
+        return torch.cuda.use_mem_pool(self.mem_pool, self.device)
+
     # -- loading ------------------------------------------------------------
 
     def load(self, frames, sched: _Schedule, l_pad: int) -> None:
@@ -308,8 +344,9 @@ class _State:
         cuda = self.frames.is_cuda
         if self.sched is None:
             layout = sched.layout()
-            self.sched = torch.zeros(sum(int(np.prod(s)) for _, s in layout.values()),
-                                     dtype=torch.int64, device=self.frames.device)
+            with self.buffers():
+                self.sched = torch.zeros(sum(int(np.prod(s)) for _, s in layout.values()),
+                                         dtype=torch.int64, device=self.device)
             self.views = {name: self.sched[o:o + int(np.prod(s))].view(s)
                           for name, (o, s) in layout.items()}
         if torch.is_tensor(frames):
@@ -334,8 +371,9 @@ class _State:
         frames = self.frames.index_select(0, v["win_frames"][0])
         feats = eng.model.backbone_features(eng.preprocess(frames, self.resize_hw))
         if self.rings is None:
-            self.rings = [torch.zeros((self.ring_rows,) + f.shape[1:], dtype=f.dtype,
-                                      device=f.device) for f in feats]
+            with self.buffers():
+                self.rings = [torch.zeros((self.ring_rows,) + f.shape[1:], dtype=f.dtype,
+                                          device=f.device) for f in feats]
         rows = torch.cat([v["prelude_rows"], v["prelude_mirror"]])
         for ring, f in zip(self.rings, feats):
             ring.index_copy_(0, rows, torch.cat([f, f]))
@@ -363,13 +401,16 @@ class _State:
         wmap = (semseg if semseg is not None else seed).float()
         if self.embs is None:
             dev = emb.device
-            self.embs = torch.zeros((self.w_cap,) + emb.shape, dtype=torch.float32, device=dev)
-            self.bws = torch.zeros((self.w_cap,) + bw.shape, dtype=torch.float32, device=dev)
-            self.seeds = torch.zeros((self.w_cap,) + seed.shape, dtype=torch.float32, device=dev)
-            # + T trash rows: the block of a padded window
-            self.acc = torch.zeros((self.l_cap,) + wmap.shape[1:], dtype=torch.float32,
-                                   device=dev)
-            self.cnt = torch.zeros(self.l_cap, dtype=torch.float32, device=dev)
+            with self.buffers():
+                self.embs = torch.zeros((self.w_cap,) + emb.shape, dtype=torch.float32,
+                                        device=dev)
+                self.bws = torch.zeros((self.w_cap,) + bw.shape, dtype=torch.float32, device=dev)
+                self.seeds = torch.zeros((self.w_cap,) + seed.shape, dtype=torch.float32,
+                                         device=dev)
+                # + T trash rows: the block of a padded window
+                self.acc = torch.zeros((self.l_cap,) + wmap.shape[1:], dtype=torch.float32,
+                                       device=dev)
+                self.cnt = torch.zeros(self.l_cap, dtype=torch.float32, device=dev)
         self.embs.index_copy_(0, self.win_idx, emb.float()[None])
         self.bws.index_copy_(0, self.win_idx, bw.float()[None])
         self.seeds.index_copy_(0, self.win_idx, seed.float()[None])
@@ -386,7 +427,9 @@ class _State:
                               semseg_output_type=self.semseg_output_type,
                               seediness_fg_threshold=self.threshold)
         if self.fg is None:
-            self.fg = torch.zeros((self.l_cap,) + fg.shape[1:], dtype=fg.dtype, device=fg.device)
+            with self.buffers():
+                self.fg = torch.zeros((self.l_cap,) + fg.shape[1:], dtype=fg.dtype,
+                                      device=fg.device)
         self.fg[:n].copy_(fg)
         return mc
 
@@ -404,13 +447,15 @@ class _State:
         labels = cluster_window(emb, bw, seed, self.fg.index_select(0, frames),
                                 pipe.cluster_params, base).labels
         if self.committed is None:
-            self.committed = torch.full((self.l_cap + 1,) + labels.shape[1:], -1,
-                                        dtype=torch.int32, device=labels.device)
-            # raw id -> global root; slot 0 is where out-of-band candidates clip
-            self.lut0 = torch.arange(self.n_lut, dtype=torch.int32, device=labels.device)
-            self.lut = self.lut0.clone()
+            with self.buffers():
+                self.committed = torch.full((self.l_cap + 1,) + labels.shape[1:], -1,
+                                            dtype=torch.int32, device=labels.device)
+                # raw id -> global root; slot 0 is where out-of-band candidates clip
+                self.lut0 = torch.arange(self.n_lut, dtype=torch.int32, device=labels.device)
+                self.lut = self.lut0.clone()
         if band not in self.band_iotas:
-            self.band_iotas[band] = torch.arange(band, device=labels.device)
+            with self.buffers():
+                self.band_iotas[band] = torch.arange(band, device=labels.device)
 
         # fold: the candidate globals are the lut roots of the band's raw ids.
         # The band is rounded up, so at small K the last window's can reach
@@ -444,8 +489,8 @@ class _State:
         """Runs one per-window body, ``"prelude"``, ``("scan_a", n_new)`` or
         ``("scan_b", band)`` (``window`` is its window index): eagerly on
         the CPU; on a CUDA device eagerly on the capture stream the first
-        time on a host thread (a warm-up), captured that thread's next time,
-        replayed from then on."""
+        time on a host thread (a warm-up), captured that thread's next
+        time, replayed from then on."""
         if window is not None:
             self.win_idx.fill_(window)
         body = {"prelude": self._prelude,
@@ -467,7 +512,7 @@ class _State:
             # allocators (device and page-locked host) at every capture
             graph = torch.cuda.CUDAGraph()
             stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(stream), launches.captured() as launched:
+            with _CAPTURE_LOCK, torch.cuda.stream(stream), launches.captured() as launched:
                 graph.capture_begin(self.pipe.graph_pool, capture_error_mode="thread_local")
                 try:
                     body()
@@ -575,6 +620,13 @@ class FusedSequencePipeline:
         k = self.cluster_params.max_instances
         return _round_up(k * lookback, max(self.LOOKBACK_PAD, 2 * k))
 
+    def release_cache(self) -> None:
+        """Gives the caching allocator's free blocks back to the card
+        (module docstring). CUDA only."""
+        with span("fused.release"), _CAPTURE_LOCK:
+            torch.cuda.empty_cache()
+        count("fused.cache_releases")
+
     def _schedule(self, windows: List[List[int]], k: int, l_cap: int,
                   w_cap: int) -> _Schedule:
         """Memoised ``_Schedule``: a pure function of (windows, k, l_cap,
@@ -602,7 +654,8 @@ class FusedSequencePipeline:
                 if self.engine.device.type == "cuda":  # replays may still read its buffers
                     torch.cuda.synchronize(self.engine.device)
                 old.release_graphs()
-                self._state = old = None
+                with _CAPTURE_LOCK:  # dropping the state empties its memory pool
+                    self._state = old = None
             self._state = make(l_cap, w_cap)
         self.states_made += 1
         return self._state
@@ -654,6 +707,7 @@ class FusedSequencePipeline:
             state = self._state_for(key, l_pad, w_pad, lambda l_cap, w_cap: _State(
                 self, key, frame_shape, resize_hw, l_cap, w_cap, t_win, semseg_output_type,
                 seediness_fg_threshold))
+            warm = len(state.warm)
             sched = self._schedule(windows, k, state.l_cap, state.w_cap)
             band = self._band(sched.lookback)
 
@@ -674,7 +728,12 @@ class FusedSequencePipeline:
                 torch.int16 if w_pad * k + 1 < 2 ** 15 else torch.int32, copy=True)
             fg = state.fg[:l_pad]
 
+            # a run that warmed a body up releases once the card is done
+            # with it: after the fetch's wait, or inside cudaFree's own
+            warmed = len(state.warm) > warm
             if device_outputs:
+                if warmed:
+                    self.release_cache()
                 return labels, None, None, fg.clone(), mc
             fetch = [labels, fg]
             want_mc = fetch_multiclass and mc is not None
@@ -684,6 +743,8 @@ class FusedSequencePipeline:
             with span("fused.fetch"):
                 fetched = _fetch(fetch)
                 labels = fetched[0][:t_total].astype(np.int32)
+            if warmed:
+                self.release_cache()
             fg = fetched[1][:t_total]
             multiclass = fetched[2][:t_total] if want_mc else kept_mc
             with span("fused.track_stats"):

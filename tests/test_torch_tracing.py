@@ -12,7 +12,9 @@ the kernels' launch counts on the fused path on a card.
   ``stemseg.*`` event of the same name (to within 2 ms), the two under
   2 ms apart in the median; a session's records replace the session
   before's, back to back too; ``write_trace`` prints the totals and
-  counters.
+  counters. On the CPU the fused path releases no cache (the card's
+  release: ``test_torch_fused_release.py``) and keeps no ``fused.*``
+  counter, over a replaced state too.
 * On a card (``card``): a fused run's ``launch_counts`` equal the
   clustering and lsap kernels' launches in a profiler trace of the same
   run, graph replays included, and the device spans read stream times.
@@ -248,6 +250,27 @@ def test_records_lie_within_2_ms_of_the_profiler_events(which, request):
             assert ps - TOLERANCE_NS < s <= e < pe + TOLERANCE_NS, name
             apart += [s - ps, pe - e]
     assert statistics.median(apart) < TOLERANCE_NS
+
+
+def test_cpu_fused_runs_release_no_cache(cfg, tmp_path, monkeypatch):
+    """The fused path gives cached blocks back only on a CUDA device: over a
+    warm-up, a kept state and a replaced one on the CPU no cache is emptied
+    and no ``fused.*`` counter is kept."""
+
+    def refuse():
+        raise AssertionError("torch.cuda.empty_cache called on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "empty_cache", refuse)
+    tg = track_generator(cfg, tmp_path)
+    with profile(activities=[ProfilerActivity.CPU]):
+        run_sequence(tg, "a", 1)
+        run_sequence(tg, "b", 2)
+        n = 2 * FRAMES  # longer than the state's buffers: a replacement
+        tg._process_loaded(Seq("c", n), frames(3, n), HW, tg.max_tracks)
+    records = profiling.last_session()
+    assert tg.fused.states_made == 2
+    assert names(records).count("fused.new_state") == 2 and "fused.release" not in names(records)
+    assert not [name for name in records["counters"] if name.startswith("fused.")]
 
 
 def test_a_session_replaces_the_one_before(tmp_path, capsys):
