@@ -125,7 +125,7 @@ which raises on failure (the script then exits non-zero):
    bf16 through ``TrackGenerator`` on the fused path and on the streaming
    path with the same model and frames: labels bit-identical, fg and
    multiclass masks equal, writer files byte-equal, a fused run from the
-   upload to the dispatch's end under ``set_sync_debug_mode("error")``,
+   upload to its one fetch under ``set_sync_debug_mode("error")``,
    steady overall fps in turns (streaming, fused, fused, streaming), and a
    profiled run of each (device busy share; the graph-replayed kernels'
    launches); last, one pass over DAVIS
@@ -2701,7 +2701,7 @@ def fused_path(tag, preset, dataset, frames, seq_id, out_root, smi, resize_embed
     clustering kernel and the lsap kernel; its second (the rest captured)
     must give the streaming run's labels bit for bit, its fg and multiclass
     masks equal, its writer files byte-equal; a third, from the upload to
-    the dispatch's end, runs under ``torch.cuda.set_sync_debug_mode("error")``.
+    its one fetch, runs under ``torch.cuda.set_sync_debug_mode("error")``.
     Then steady overall fps in turns (streaming, fused, fused, streaming),
     and one profiled run of each path: device busy share and the kernels'
     launches. Returns the numbers."""
@@ -2709,6 +2709,7 @@ def fused_path(tag, preset, dataset, frames, seq_id, out_root, smi, resize_embed
     import torch
 
     from stemseg_tpu_torch.config import load_preset, merge
+    from stemseg_tpu_torch.inference import fused_pipeline
     from stemseg_tpu_torch.models import build_model
     from stemseg_tpu_torch.ops import launch_counts, lsap, reset_launch_counts
     from stemseg_tpu_torch.utils.timer import Timer
@@ -2767,19 +2768,28 @@ def fused_path(tag, preset, dataset, frames, seq_id, out_root, smi, resize_embed
     if not (labels_equal and fg_equal and mc_equal and files_equal):
         raise AssertionError(f"path {tag}: the fused path differs from the streaming path")
 
+    # checked from the upload to the run's one fetch, whose wait is the
+    # run's one sync: the wrapper turns the check off there
     fused = tgs["fused"]
     windows, resize = fused._schedule(len(frames), frames.shape[1:3])
+    fetch = fused_pipeline._fetch
+
+    def fetch_unchecked(tensors):
+        torch.cuda.set_sync_debug_mode(0)
+        return fetch(tensors)
+
+    fused_pipeline._fetch = fetch_unchecked
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = fused.fused.run(frames, windows, seediness_fg_threshold=fused.seediness_thresh,
-                              semseg_output_type=fused.semseg_output_type, resize_hw=resize,
-                              device_outputs=True)
+                              semseg_output_type=fused.semseg_output_type, resize_hw=resize)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    if not np.array_equal(out[0][:len(frames)].int().cpu().numpy(), s_res[0]):
+        fused_pipeline._fetch = fetch
+    if not np.array_equal(out[0], s_res[0]):
         raise AssertionError(f"path {tag}: the sync-checked fused run's labels differ")
-    log(f"  path {tag}: fused run from upload to dispatch under set_sync_debug_mode('error'): "
+    log(f"  path {tag}: fused run from upload to its fetch under set_sync_debug_mode('error'): "
         "no host sync")
 
     fps = {"streaming": [], "fused": []}

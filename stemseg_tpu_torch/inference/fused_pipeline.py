@@ -85,9 +85,11 @@ replay a body, never the body.
 
 Data parallel (``run_batch``, the inference CLI's ``--data_parallel``): one
 sequence per device, each through a pipeline of its own (a replica of the
-model, its own engine, device state and capture stream on that device),
-each driven from its own host thread; the JAX package's padding of a batch
-to one compile bucket is an XLA matter and has no counterpart.
+model, its own engine, device state and capture stream on that device).
+Slot 0 runs on the calling thread, every other slot on the one host thread
+its pipeline keeps for its life, so each pipeline warms and captures a body
+once a state; the JAX package's padding of a batch to one compile bucket is
+an XLA matter and has no counterpart.
 """
 
 from __future__ import annotations
@@ -96,7 +98,7 @@ import contextlib
 import copy
 import threading
 import weakref
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -503,8 +505,8 @@ class _State:
         stream = self.pipe.stream
         # captured only on a host thread that ran it eagerly before: a
         # thread's first cuDNN call can create its handle, which allocates
-        # device memory and so cannot be captured (``run_batch`` runs each
-        # call on new threads)
+        # device memory and so cannot be captured (a caller may drive one
+        # pipeline from two threads)
         warm_key = (name, threading.get_ident())
         if graph is None and warm_key in self.warm:
             # capture_begin / capture_end on the capture stream, not
@@ -604,6 +606,9 @@ class FusedSequencePipeline:
         self.stream: Optional[torch.cuda.Stream] = None
         self.graph_pool = self._pool_keeper = None  # every state's graphs capture into it
         self._replicas: Dict[Tuple[int, torch.device], "FusedSequencePipeline"] = {}
+        # run_batch's host thread for this pipeline as a slot >= 1, started at
+        # its first use; it exits when the pipeline is dropped
+        self._worker = ThreadPoolExecutor(max_workers=1)
         if engine.device.type == "cuda":
             from stemseg_tpu_torch.ops.cluster import prepare_records
 
@@ -662,9 +667,9 @@ class FusedSequencePipeline:
 
     @torch.no_grad()
     def run(self, frames, windows: List[List[int]], seediness_fg_threshold: float = 0.25,
-            semseg_output_type: str = "probs", resize_hw: Optional[Tuple[int, int]] = None,
-            device_outputs: bool = False, fetch_multiclass: bool = True):
-        """One sequence through the fused path.
+            semseg_output_type: str = "probs", resize_hw: Optional[Tuple[int, int]] = None):
+        """One sequence through the fused path: the labels and fg masks
+        fetched with one wait for the device, the multiclass masks left on it.
 
         :param frames: uint8 ``[T_total, H0, W0, 3]`` raw BGR frames (numpy),
             or a uint8 tensor on the device already padded to the sequence's
@@ -673,15 +678,9 @@ class FusedSequencePipeline:
             repeated frames (sequences of at least T frames)
         :param resize_hw: network input dims before the /32 padding (None:
             the frames' own)
-        :param device_outputs: skip the fetch; return device tensors
-            (labels in the transport dtype, int16 when the ids fit, and the
-            masks, padded to the padded length) with counts and lifetimes
-            None
-        :param fetch_multiclass: False leaves the multiclass masks on the
-            device (the DAVIS writer ignores them; the other writers take
-            device tensors)
         :return: (labels ``[T, h_c, w_c]`` int32 numpy, counts, lifetimes,
-            fg masks numpy, multiclass masks: numpy, a device tensor or None)
+            fg masks numpy, multiclass masks: a device tensor, or None
+            without a semseg head)
         """
         # the true length comes from the schedule: device frames arrive padded
         t_total = max(max(w) for w in windows) + 1
@@ -726,30 +725,17 @@ class FusedSequencePipeline:
             # int16 transport whenever the ids fit (halves the label fetch)
             labels = state.committed[:l_pad].to(
                 torch.int16 if w_pad * k + 1 < 2 ** 15 else torch.int32, copy=True)
-            fg = state.fg[:l_pad]
-
-            # a run that warmed a body up releases once the card is done
-            # with it: after the fetch's wait, or inside cudaFree's own
-            warmed = len(state.warm) > warm
-            if device_outputs:
-                if warmed:
-                    self.release_cache()
-                return labels, None, None, fg.clone(), mc
-            fetch = [labels, fg]
-            want_mc = fetch_multiclass and mc is not None
-            if want_mc:
-                fetch.append(mc)
-            kept_mc = mc[:t_total] if mc is not None and not want_mc else None
             with span("fused.fetch"):
-                fetched = _fetch(fetch)
-                labels = fetched[0][:t_total].astype(np.int32)
-            if warmed:
+                labels, fg = _fetch([labels, state.fg[:l_pad]])
+                labels = labels[:t_total].astype(np.int32)
+            # a run that warmed a body up releases once the card is done with
+            # it: after the fetch's wait
+            if len(state.warm) > warm:
                 self.release_cache()
-            fg = fetched[1][:t_total]
-            multiclass = fetched[2][:t_total] if want_mc else kept_mc
             with span("fused.track_stats"):
                 counts, lifetimes = track_stats(labels)
-            return labels, counts, lifetimes, fg, multiclass
+            return (labels, counts, lifetimes, fg[:t_total],
+                    None if mc is None else mc[:t_total])
 
     def replica(self, slot: int, device) -> "FusedSequencePipeline":
         """The pipeline of ``run_batch``'s slot ``slot`` on ``device``: this one
@@ -773,15 +759,16 @@ class FusedSequencePipeline:
     def run_batch(self, frames_batch: Sequence, windows_batch: Sequence[List[List[int]]],
                   devices: Sequence, **kwargs) -> List[tuple]:
         """Data-parallel inference: sequence ``i`` runs on ``devices[i]``
-        through slot ``i``'s pipeline (``replica``), each driven from its own
-        host thread; a device may appear more than once.
+        through slot ``i``'s pipeline (``replica``), slot 0 on the calling
+        thread and every other slot on its pipeline's own host thread; a
+        device may appear more than once.
 
         :param frames_batch: per-sequence raw uint8 frames, as ``run`` takes
         :param windows_batch: per-sequence window schedules
         :param devices: one device per sequence
         :param kwargs: ``run``'s options, the same for every sequence
-        :return: ``run``'s result per sequence, in input order; a
-            sequence's failure is raised
+        :return: ``run``'s result per sequence, in input order; once every
+            sequence has finished, the first failure in input order is raised
         """
         if not len(frames_batch) == len(windows_batch) == len(devices):
             raise ValueError(f"{len(frames_batch)} sequences, {len(windows_batch)} schedules "
@@ -793,7 +780,10 @@ class FusedSequencePipeline:
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                 return pipe.run(frames, windows, **kwargs)
 
-        with ThreadPoolExecutor(max_workers=len(pipes)) as pool:
-            futures = [pool.submit(one, pipe, f, w)
-                       for pipe, f, w in zip(pipes, frames_batch, windows_batch)]
-            return [f.result() for f in futures]
+        jobs = list(zip(pipes, frames_batch, windows_batch))
+        futures = [job[0]._worker.submit(one, *job) for job in jobs[1:]]
+        try:
+            first = one(*jobs[0])
+        finally:
+            wait(futures)
+        return [first] + [f.result() for f in futures]

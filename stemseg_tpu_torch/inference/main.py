@@ -248,7 +248,7 @@ class TrackGenerator:
         windows, resize_hw = self._schedule(frames.shape[0], image_hw)
         return self.fused.run(frames, windows, seediness_fg_threshold=self.seediness_thresh,
                               semseg_output_type=self.semseg_output_type,
-                              resize_hw=resize_hw, fetch_multiclass=False)
+                              resize_hw=resize_hw)
 
     @Timer.log_duration("inference")
     def do_fused_batch(self, frames_list: List[np.ndarray], image_hw):
@@ -259,8 +259,7 @@ class TrackGenerator:
         return self.fused.run_batch(
             frames_list, [windows for windows, _ in schedules], self.devices[:len(frames_list)],
             seediness_fg_threshold=self.seediness_thresh,
-            semseg_output_type=self.semseg_output_type, resize_hw=schedules[0][1],
-            fetch_multiclass=False)
+            semseg_output_type=self.semseg_output_type, resize_hw=schedules[0][1])
 
     @Timer.log_duration("postprocessing")
     def do_clustering(self, out):

@@ -6,6 +6,9 @@ inference CLI's ``--data_parallel``, on the CPU:
   exactly (labels, counts, lifetimes, fg and multiclass masks), on
   sequences of mixed lengths, twice with the replica kept; a sequence's
   failure is raised;
+* ``run_batch`` runs slot 0 on the calling thread and slot 1 on one
+  thread of its pipeline's own in every call, a thread that exits once
+  the pipeline is dropped;
 * ``run_batch`` over four slots, sequences of four lengths, equals
   ``run`` on each;
 * the CLI's ``--data_parallel`` (``CPU_DATA_PARALLEL`` replicas on the CPU;
@@ -21,6 +24,7 @@ inference CLI's ``--data_parallel``, on the CPU:
 
 import json
 import os
+import threading
 
 import cv2
 import numpy as np
@@ -78,7 +82,7 @@ def test_run_batch_equals_per_sequence_run(pipe):
             np.testing.assert_array_equal(g[0], w[0])
             assert g[1] == w[1] and g[2] == w[2]
             np.testing.assert_array_equal(g[3], w[3])
-            np.testing.assert_array_equal(g[4], w[4])
+            np.testing.assert_array_equal(g[4].numpy(), w[4].numpy())
     assert list(pipe._replicas) == [(1, torch.device("cpu"))]
     replica = pipe._replicas[(1, torch.device("cpu"))]
     assert replica.engine.model is not pipe.engine.model
@@ -86,6 +90,35 @@ def test_run_batch_equals_per_sequence_run(pipe):
     with pytest.raises(TypeError, match="raw uint8"):
         pipe.run_batch([seqs[0], seqs[1].astype(np.float32)], windows[:2], ["cpu", "cpu"],
                        resize_hw=HW)
+
+
+def test_run_batch_keeps_one_host_thread_per_slot(pipe, monkeypatch):
+    """Over two ``run_batch`` calls, slot 0's pipeline runs on the calling
+    thread and slot 1's on one worker thread, the same in both calls; once
+    the pipelines are dropped, that thread exits."""
+    rng = np.random.RandomState(5)
+    seqs = [(rng.rand(n, 60, 90, 3) * 255).astype(np.uint8) for n in (8, 9)]
+    windows = [get_subsequence_frames(len(f), 4, 2) for f in seqs]
+    threads = {}  # id of the pipeline -> the threads its runs ran on
+    run = FusedSequencePipeline.run
+
+    def spy(self, *args, **kwargs):
+        threads.setdefault(id(self), []).append(threading.current_thread())
+        return run(self, *args, **kwargs)
+
+    monkeypatch.setattr(FusedSequencePipeline, "run", spy)
+    batched = FusedSequencePipeline(pipe.engine, pipe.cluster_params)
+    slots = [id(batched.replica(i, "cpu")) for i in range(2)]
+    for _ in range(2):
+        batched.run_batch(seqs, windows, ["cpu", "cpu"], resize_hw=HW)
+    assert threads[slots[0]] == [threading.current_thread()] * 2
+    worker = threads[slots[1]][0]
+    assert threads[slots[1]] == [worker] * 2 and worker is not threading.current_thread()
+    assert worker.is_alive()
+
+    del batched  # its only holder: no cyclic GC needed
+    worker.join(timeout=30)
+    assert not worker.is_alive()
 
 
 def write_davis_set(tmp_path):
@@ -162,7 +195,7 @@ def test_run_batch_over_four_slots_equals_per_sequence_run(pipe):
         np.testing.assert_array_equal(g[0], w[0])
         assert g[1] == w[1] and g[2] == w[2]
         np.testing.assert_array_equal(g[3], w[3])
-        np.testing.assert_array_equal(g[4], w[4])
+        np.testing.assert_array_equal(g[4].numpy(), w[4].numpy())
     assert {key for key in pipe._replicas if key[0] > 1} == {(2, torch.device("cpu")),
                                                             (3, torch.device("cpu"))}
 

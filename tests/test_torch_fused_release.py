@@ -12,7 +12,9 @@ the segments outside the graph pool); the last run releases nothing; the
 and each sequence's labels equal the streaming path's bit for bit. Then
 ``run_batch`` with two slots on the one card, in bf16 (two pipelines'
 graph pools fit beside each other), whose threads warm up, release and
-capture at the same time: its labels equal ``run``'s.
+capture at the same time: its labels equal ``run``'s, and since each slot
+keeps its host thread, its second and third calls warm no body up and
+release nothing.
 
 On the CPU nothing is released (``test_torch_tracing.py``). No JAX: run on
 the card with ``STEMSEG_TEST_TPU=1 python -m pytest
@@ -25,6 +27,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from stemseg_tpu_torch.config import load_preset, merge
+from stemseg_tpu_torch.inference.fused_pipeline import FusedSequencePipeline
 from stemseg_tpu_torch.inference.main import TrackGenerator
 from stemseg_tpu_torch.models import build_model, init_random_weights
 from stemseg_tpu_torch.utils import profiling
@@ -86,7 +89,7 @@ def test_card_releases_once_a_run_that_warmed_up_and_keeps_the_labels(card, monk
 
 
 @pytest.mark.card
-def test_card_run_batch_with_two_slots_on_one_card_equals_run(card):
+def test_card_run_batch_with_two_slots_on_one_card_equals_run(card, monkeypatch):
     cfg = merge(load_preset("davis_2"), {"clustering": {"min_seediness_prob": 0.05}})
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     init_random_weights(model, 5)
@@ -96,11 +99,26 @@ def test_card_run_batch_with_two_slots_on_one_card_equals_run(card):
     windows = [tg._schedule(len(f), HW)[0] for f in seqs]
     kwargs = dict(seediness_fg_threshold=tg.seediness_thresh,
                   semseg_output_type=tg.semseg_output_type,
-                  resize_hw=tg._schedule(len(pool), HW)[1], fetch_multiclass=False)
+                  resize_hw=tg._schedule(len(pool), HW)[1])
+    releases = []
+    release_cache = FusedSequencePipeline.release_cache
+
+    def counted(self):
+        releases.append(id(self))
+        release_cache(self)
+
+    monkeypatch.setattr(FusedSequencePipeline, "release_cache", counted)
+    slots = [tg.fused.replica(i, "cuda:0") for i in range(2)]
     # warm-ups and releases, captures, replays
-    batches = [tg.fused.run_batch(seqs, windows, ["cuda:0", "cuda:0"], **kwargs)
-               for _ in range(3)]
-    assert tg.fused.replica(1, "cuda:0").captures > 0
+    batches, warm, released = [], [], []
+    for _ in range(3):
+        batches.append(tg.fused.run_batch(seqs, windows, ["cuda:0", "cuda:0"], **kwargs))
+        warm.append([len(pipe._state.warm) for pipe in slots])
+        released.append(len(releases))
+    monkeypatch.undo()
+    assert slots[1].captures > 0
+    assert warm[1] == warm[2] == warm[0], warm  # one key a body run eagerly
+    assert released == [2, 2, 2] and sorted(releases) == sorted(map(id, slots)), released
     single = [tg.fused.run(f, w, **kwargs)[0] for f, w in zip(seqs, windows)]
     for batch in batches:
         for got, want in zip(batch, single):
