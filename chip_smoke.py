@@ -1460,13 +1460,15 @@ def placed_batches(trainer, n):
     from stemseg_tpu_torch.training.datasets import create_training_dataset
     from stemseg_tpu_torch.training.loader import collate_batch, to_device
     from stemseg_tpu_torch.training.main import INIT_SEED
+    from stemseg_tpu_torch.training.step import target_scale
 
     ds = create_training_dataset(trainer.cfg, n * trainer.samples_per_step, seed=INIT_SEED,
                                  print_fn=lambda *a: None)
     k = trainer.samples_per_step
     return [to_device(collate_batch(
         [ds[i * k + j] for j in range(k)], resolve_max_instances(trainer.cfg),
-        overflow=trainer.cfg.training.instance_overflow), trainer.device) for i in range(n)]
+        target_scale(trainer.cfg), overflow=trainer.cfg.training.instance_overflow),
+        trainer.device) for i in range(n)]
 
 
 def time_h2d(tag, trainer, batch, smi):
@@ -1476,8 +1478,9 @@ def time_h2d(tag, trainer, batch, smi):
     from stemseg_tpu_torch.training.loader import DEVICE_KEYS, to_device
 
     pinned = {k: batch[k].cpu().pin_memory() for k in DEVICE_KEYS}
+    pinned["kept_counts"] = batch["kept_counts"]
     ms = time_cuda(lambda: to_device(pinned, trainer.device), 5, warmup=1)
-    mb = sum(v.numel() * v.element_size() for v in pinned.values()) / 1e6
+    mb = sum(pinned[k].numel() * pinned[k].element_size() for k in DEVICE_KEYS) / 1e6
     log(f"  {tag} H2D ({smi}): {ms:.3f} ms for one micro-batch of {mb:.1f} MB from "
         f"pinned memory ({mb / ms:.3f} GB/s)")
     return ms
@@ -1690,6 +1693,7 @@ def worker_clip_ms():
     from stemseg_tpu_torch.config import resolve_max_instances
     from stemseg_tpu_torch.training.datasets import create_training_dataset
     from stemseg_tpu_torch.training.loader import collate_batch
+    from stemseg_tpu_torch.training.step import target_scale
 
     # kitti_mots_1 (Mapillary, about 1 s a clip) takes fewer clips
     for preset, n_clips in (("davis_1", 20), ("youtube_vis", 12), ("kitti_mots_1", 8),
@@ -1698,7 +1702,8 @@ def worker_clip_ms():
         mix = create_training_dataset(cfg, n_clips, seed=MAIN_SEED, print_fn=lambda *a: None)
         loader = DataLoader(mix, batch_sampler=[[i] for i in range(n_clips)],
                             collate_fn=partial(collate_batch,
-                                               max_instances=resolve_max_instances(cfg)),
+                                               max_instances=resolve_max_instances(cfg),
+                                               scale=target_scale(cfg)),
                             num_workers=TRAIN_WORKERS, pin_memory=True, timeout=300)
         t0 = time.perf_counter()
         stamps = [time.perf_counter() - t0 for _ in loader]
@@ -1897,11 +1902,11 @@ def check_train_step_gpu_vs_cpu():
     import torch
 
     from stemseg_tpu_torch.config import load_config, resolve_max_instances
-    from stemseg_tpu_torch.data.collate import collate_fn
     from stemseg_tpu_torch.data.synthetic import SyntheticBlobDataset
     from stemseg_tpu_torch.models import build_model, init_random_weights
+    from stemseg_tpu_torch.training.loader import collate_batch, to_device
     from stemseg_tpu_torch.training.optim import make_optimizer, trainable_parameters
-    from stemseg_tpu_torch.training.step import TrainStep
+    from stemseg_tpu_torch.training.step import TrainStep, target_scale
 
     semseg = copy.deepcopy(SMALL_TRAIN)
     semseg["input"]["num_classes"] = 4
@@ -1911,7 +1916,7 @@ def check_train_step_gpu_vs_cpu():
         cfg = load_config(over)
         sample = SyntheticBlobDataset(cfg.input, 2, max_instances=3, seed=2)[1]
         sample["category_ids"] = np.arange(1, len(sample["category_ids"]) + 1, dtype=np.int32)
-        host = collate_fn([sample], resolve_max_instances(cfg))
+        host = collate_batch([sample], resolve_max_instances(cfg), target_scale(cfg))
         results = {}
         for dev in ("cpu", "cuda"):
             model = build_model(cfg, device=dev, for_training=True)
@@ -1919,8 +1924,7 @@ def check_train_step_gpu_vs_cpu():
             step = TrainStep(model, cfg, *make_optimizer(cfg.training,
                                                          trainable_parameters(model)),
                              accumulate_steps=2)
-            batch = {k: torch.from_numpy(host[k]).to(dev)
-                     for k in ("images", "masks", "ignore_masks", "category_ids")}
+            batch = to_device(host, torch.device(dev))
             metrics = {k: float(v) for k, v in step(batch).items()}
             results[dev] = (metrics, {n: p.grad.double().cpu() for n, p in
                                       model.named_parameters() if p.requires_grad})
@@ -3648,12 +3652,14 @@ def per_clip_reference(model, cfg, batch, world):
     if not cfg.training.loss_at_full_res:
         masks = prepare_targets(masks, batch["ignore_masks"].float(), batch["category_ids"])[0]
     n_instances = int((masks.flatten(2).amax(2) > 0).sum())
-    loss_fn = make_output_loss_fn(cfg, world_counts=lambda n, s: (n_instances, world),
+    loss_fn = make_output_loss_fn(cfg, batch["masks"].device,
+                                  world_counts=lambda n, s: (n_instances, world),
                                   world_size=world)
     params = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     grads, terms = {n: 0.0 for n, _ in params}, {}
     for i in range(world):
         clip = {k: batch[k][i:i + 1] for k in DEVICE_KEYS}
+        clip["kept_counts"] = batch["kept_counts"][i:i + 1]
         loss, metrics = loss_fn(model(clip["images"].permute(0, 1, 4, 2, 3)), clip)
         for (n, _), g in zip(params, torch.autograd.grad(
                 loss, [p for _, p in params], allow_unused=True, materialize_grads=True)):

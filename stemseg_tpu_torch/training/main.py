@@ -174,6 +174,7 @@ class Trainer:
         )
         from stemseg_tpu_torch.training.datasets import create_training_dataset
         from stemseg_tpu_torch.training.loader import make_data_loader
+        from stemseg_tpu_torch.training.step import target_scale
 
         # micro-steps = optimizer steps * accumulate steps; every rank draws
         # the global stream and keeps its slice of each global batch
@@ -189,6 +190,7 @@ class Trainer:
             batch_sampler = RankBatches(batch_sampler, self.rank, self.world)
         return make_data_loader(dataset, batch_sampler,
                                 max_instances=resolve_max_instances(self.cfg),
+                                scale=target_scale(self.cfg),
                                 overflow=self.cfg.training.instance_overflow,
                                 num_workers=num_workers,
                                 pin_memory=self.device.type == "cuda")

@@ -60,9 +60,9 @@ def make_optimizer(tcfg, params: Iterable[torch.nn.Parameter]):
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of all elements (optax ``global_norm``)."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
+    """sqrt of the sum of squares of all elements (optax ``global_norm``);
+    the per-tensor norms in one multi-tensor launch."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float = CLIP_MAX_NORM) -> None:

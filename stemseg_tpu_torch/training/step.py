@@ -37,22 +37,31 @@ the span ``step`` (its id the micro-step's number, counted from 1) around
 running mean) and ``step.update`` (when the update is due), each also
 timed on the CUDA stream.
 
-Batch contract (device tensors): ``images`` [N, T, H, W, 3] float32,
-normalised, padded to /32; ``masks`` [N, I, T, H, W] uint8 (padded
-instance axis); ``ignore_masks`` [N, T, H, W] uint8; ``category_ids``
-[N, I] int32 (0 for padding). Masks become float32 on the device.
+Batch contract (``training/loader.py``: ``to_device`` of a batch that
+``collate_batch`` or ``loader_batch`` made): device tensors ``images``
+[N, T, H, W, 3] float32, normalised, padded to /32; ``masks`` [N, I, T,
+H, W] uint8 (padded instance axis); ``ignore_masks`` [N, T, H, W] uint8;
+``category_ids`` [N, I] int32 (0 for padding); ``kept_rows`` [N, I] int64,
+each sequence's rows of ``masks`` that keep a pixel at the loss's size
+(``kept_rows``, below), ascending, first; and on the host ``kept_counts``,
+N ints, how many. Masks become float32 on the device. So from the batch's
+copy to the end of the update one micro-step on one card never makes the
+host wait for the card; with a process group, ``world_counts`` reads the
+global instance count back once a micro-step.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from stemseg_tpu_torch.losses import (
     EmbeddingLossParams,
     embedding_loss,
     foreground_bce,
+    free_bandwidths,
     semseg_cross_entropy,
 )
 from stemseg_tpu_torch.models.embedding_utils import get_nb_free_dims
@@ -67,6 +76,31 @@ from stemseg_tpu_torch.utils.profiling import span
 def _downscale_binary(x: torch.Tensor, scale: int) -> torch.Tensor:
     h, w = x.shape[-2:]
     return (resize_bilinear(x, (h // scale, w // scale)) >= 1.0 - 1e-5).to(x.dtype)
+
+
+def kept_rows(masks: np.ndarray, scale: int) -> np.ndarray:
+    """The rows of ``masks`` [I, T, H, W] (non-negative integers, H and W
+    multiples of ``scale``) that keep a pixel in ``_downscale_binary(masks,
+    scale)``, ascending, found without the resize. A half-pixel bilinear
+    ÷``scale`` output pixel reads its block's source rows and columns at
+    offsets ``(scale - 1) // 2`` and ``scale // 2``, weight 1/2 each (one
+    offset and weight 1 when they coincide, ``scale`` odd), so on integers
+    it reaches ``1 - 1e-5`` exactly when those 4 (or 1) pixels sum to 4 (or
+    1) or more."""
+    h, w = masks.shape[-2:]
+    if h % scale or w % scale:
+        raise ValueError(f"{h}x{w} masks do not divide by the scale {scale}")
+    offsets = sorted({(scale - 1) // 2, scale // 2})
+    block = sum(masks[..., a::scale, b::scale].astype(np.uint16)
+                for a in offsets for b in offsets)
+    kept = (block >= len(offsets) ** 2).any(axis=tuple(range(1, block.ndim)))
+    return np.flatnonzero(kept)
+
+
+def target_scale(cfg) -> int:
+    """The loss's targets' downscale: 4, or 1 under ``loss_at_full_res``,
+    which upscales the outputs 4x so that the targets stay full size."""
+    return 1 if cfg.training.loss_at_full_res else 4
 
 
 def semseg_labels(masks: torch.Tensor, category_ids: torch.Tensor) -> torch.Tensor:
@@ -84,11 +118,12 @@ def prepare_targets(masks: torch.Tensor, ignore_masks: torch.Tensor,
     return masks_ds, ignore_ds, semseg_labels(masks_ds, category_ids)
 
 
-def make_output_loss_fn(cfg, world_counts: Optional[Callable] = None,
+def make_output_loss_fn(cfg, device, world_counts: Optional[Callable] = None,
                         world_size: int = 1) -> Callable:
     """The loss composition after the network forward: ``(out, batch) ->
     (total, metrics)``.
 
+    :param device: the outputs' device, where the loss's constants live
     :param world_counts: the embedding loss's sum of (instances, sequences)
         over the data-parallel ranks; None for one process
     :param world_size: the ranks; the CE and fg BCE are divided by it"""
@@ -102,21 +137,22 @@ def make_output_loss_fn(cfg, world_counts: Optional[Callable] = None,
         weight_seediness=lcfg.embedding.weight_seediness,
         weight=lcfg.embedding.weight,
     )
-    # loss_at_full_res upscales the outputs 4x, so the targets stay full size
-    target_scale = 1 if cfg.training.loss_at_full_res else 4
+    free_bw = free_bandwidths(emb_params, device)
+    scale = target_scale(cfg)
     use_semseg = cfg.model.use_semseg_head
     fg_channel = cfg.model.semseg.foreground_channel
 
     def output_loss_fn(out, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         masks = batch["masks"].float()
         ignore = batch["ignore_masks"].float()
-        if target_scale > 1:
+        if scale > 1:
             masks, ignore, labels = prepare_targets(masks, ignore, batch["category_ids"],
-                                                    target_scale)
+                                                    scale)
         else:
             labels = semseg_labels(masks, batch["category_ids"])
 
         total, metrics = embedding_loss(out["embeddings"].float(), masks, ignore, emb_params,
+                                        free_bw, batch["kept_rows"], batch["kept_counts"],
                                         world_counts=world_counts)
         metrics[LossConsts.EMBEDDING] = total
         if use_semseg:
@@ -151,13 +187,13 @@ class TrainStep:
         self.accumulate_steps = accumulate_steps
         self.params = [p for group in optimizer.param_groups for p in group["params"]]
         self.distributed = is_initialized()
+        device = next(model.parameters()).device
         if self.distributed:
-            device = next(model.parameters()).device
             self.loss_fn = make_output_loss_fn(
-                cfg, world_counts=lambda *counts: all_reduce_ints(counts, device),
+                cfg, device, world_counts=lambda *counts: all_reduce_ints(counts, device),
                 world_size=get_world_size())
         else:
-            self.loss_fn = make_output_loss_fn(cfg)
+            self.loss_fn = make_output_loss_fn(cfg, device)
         self.clip = cfg.training.clip_gradients
         self.micro_step = 0
         self.calls = 0  # micro-steps run, the ``step`` spans' ids
@@ -166,11 +202,14 @@ class TrainStep:
     def accumulate(self, grads) -> None:
         k = self.micro_step
         with torch.no_grad():
-            for p, g in zip(self.params, grads):
-                if k == 0:
+            if k == 0:
+                for p, g in zip(self.params, grads):
                     p.grad = g
-                else:
-                    p.grad.add_((g - p.grad) / (k + 1))
+            else:  # one launch per op for all the tensors: the host stays ahead
+                acc = [p.grad for p in self.params]
+                delta = torch._foreach_sub(list(grads), acc)
+                torch._foreach_div_(delta, k + 1)
+                torch._foreach_add_(acc, delta)
         self.micro_step += 1
 
     def update(self) -> None:

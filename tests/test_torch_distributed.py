@@ -86,6 +86,7 @@ def worker(spec_path: str, rank: int) -> None:
     from stemseg_tpu_torch.config import load_config
     from stemseg_tpu_torch.models import build_model
     from stemseg_tpu_torch.parallel import all_reduce_sum_, replicate, shard_batch
+    from stemseg_tpu_torch.training.loader import loader_batch, to_device
     from stemseg_tpu_torch.training.optim import make_optimizer, trainable_parameters
     from stemseg_tpu_torch.training.step import TrainStep, make_output_loss_fn
     from stemseg_tpu_torch.utils.distributed import (
@@ -109,7 +110,8 @@ def worker(spec_path: str, rank: int) -> None:
     rows = shard_batch(list(range(world)), rank, world)
 
     def micro_batch(k):
-        return {key: torch.from_numpy(data[key][k][rows]) for key in data.files}
+        return to_device(loader_batch({key: data[key][k][rows] for key in data.files}, 4),
+                         torch.device("cpu"))
 
     def fresh():
         model = build_model(cfg, device="cpu", for_training=True)
@@ -132,7 +134,7 @@ def worker(spec_path: str, rank: int) -> None:
     model, opt, sched = fresh()
     batch = micro_batch(0)
     out = model(batch["images"].permute(0, 1, 4, 2, 3))
-    total, _ = make_output_loss_fn(cfg)(out, batch)
+    total, _ = make_output_loss_fn(cfg, torch.device("cpu"))(out, batch)
     params = trainable_parameters(model)
     grads = [g / world for g in torch.autograd.grad(total, params)]
     all_reduce_sum_(grads)
@@ -181,6 +183,7 @@ from test_torch_train_step import (  # noqa: E402
     jax_param_sd,
     make_batch,
     rel_l2,
+    torch_batch,
 )
 from test_torch_trainer import TRAIN_SMALL, trainer_args  # noqa: E402
 
@@ -297,7 +300,7 @@ def test_ranks_match_the_jax_mesh_step(davis, tmp_path_factory, world):
     model.load_state_dict(state_dict_from_jax(davis.variables))
     opt, sched = make_optimizer(cfg.training, trainable_parameters(model))
     one = TrainStep(model, cfg, opt, sched, accumulate_steps=2)
-    metrics_one = one({k: torch.from_numpy(v[0]) for k, v in data.items()})
+    metrics_one = one(torch_batch({k: v[0] for k, v in data.items()}))
     for k, v in metrics_one.items():
         np.testing.assert_allclose(got["probe_metrics"][k], float(v), rtol=1e-5, atol=1e-7,
                                    err_msg=k)
@@ -315,7 +318,7 @@ def test_per_clip_reference_equals_four_ranks(davis, tmp_path_factory):
     cfg = load_config(over)
     model = build_model(cfg, device="cpu", for_training=True)
     model.load_state_dict(state_dict_from_jax(davis.variables))
-    batch = {k: torch.from_numpy(v[0]) for k, v in data.items()}
+    batch = torch_batch({k: v[0] for k, v in data.items()})
     grads, terms = chip_smoke.per_clip_reference(model, cfg, batch, 4)
     assert sorted(grads) == sorted(got["probe"])
     for k, v in terms.items():

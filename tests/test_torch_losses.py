@@ -24,9 +24,11 @@ from stemseg_tpu_torch.losses import (
     EmbeddingLossParams,
     embedding_loss,
     foreground_bce,
+    free_bandwidths,
     lovasz_hinge,
     semseg_cross_entropy,
 )
+from stemseg_tpu_torch.training.loader import kept_instances
 
 torch.set_num_threads(2)
 
@@ -119,8 +121,11 @@ def run_both_embedding(out, masks, ignore, lparams):
     (jtotal, jterms), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(out))
 
     x = torch.from_numpy(out).permute(0, 4, 1, 2, 3).contiguous().requires_grad_(True)
+    params = EmbeddingLossParams(**lparams)
+    rows, counts = kept_instances(masks, 1)  # the masks are at the loss's size
     total, terms = embedding_loss(x, torch.from_numpy(masks), torch.from_numpy(ignore),
-                                  EmbeddingLossParams(**lparams))
+                                  params, free_bandwidths(params, "cpu"),
+                                  torch.from_numpy(rows), counts)
     total.backward()
     grad = x.grad.permute(0, 2, 3, 4, 1).numpy()
     return (float(jtotal), {k: float(v) for k, v in jterms.items()}, np.asarray(jgrad)), \

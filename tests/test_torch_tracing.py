@@ -36,6 +36,7 @@ from stemseg_tpu_torch.config import load_config
 from stemseg_tpu_torch.inference.main import TrackGenerator
 from stemseg_tpu_torch.inference.output_utils import DavisOutputGenerator
 from stemseg_tpu_torch.models import build_model, init_random_weights
+from stemseg_tpu_torch.training.loader import loader_batch, to_device
 from stemseg_tpu_torch.training.optim import make_optimizer, trainable_parameters
 from stemseg_tpu_torch.training.step import TrainStep
 from stemseg_tpu_torch.utils import profiling
@@ -97,15 +98,15 @@ def train_step(cfg):
     return TrainStep(model, cfg, optimizer, scheduler, accumulate_steps=2)
 
 
-def batch(seed, t=4, h=64, w=96):
+def batch(seed, t=4, h=64, w=96, device="cpu"):
     rng = np.random.RandomState(seed)
     masks = np.zeros((1, 2, t, h, w), np.uint8)
     masks[0, 0, :, 8:30, 10:40] = 1
     masks[0, 1, :, 34:60, 50:90] = 1
-    return {"images": torch.from_numpy(rng.randn(1, t, h, w, 3).astype(np.float32) * 40),
-            "masks": torch.from_numpy(masks),
-            "ignore_masks": torch.zeros((1, t, h, w), dtype=torch.uint8),
-            "category_ids": torch.tensor([[1, 1]], dtype=torch.int32)}
+    arrays = {"images": rng.randn(1, t, h, w, 3).astype(np.float32) * 40, "masks": masks,
+              "ignore_masks": np.zeros((1, t, h, w), np.uint8),
+              "category_ids": np.array([[1, 1]], np.int32)}
+    return to_device(loader_batch(arrays, scale=4), torch.device(device))
 
 
 def names(records, top=None):
@@ -217,6 +218,8 @@ def test_writer_spans_one_resize_and_one_encode_a_frame(fused_session):
 
 def test_train_step_spans_names_order_parents_and_ids(step_session):
     records, _ = step_session
+    # each micro-step's one sequence had its kept rows from the host
+    assert records["counters"] == {"loss.host_selection": 2}
     micro = ["step.forward", "step.loss", "step.backward", "step.accumulate"]
     assert names(records, top=1) == ["step"] + micro
     assert names(records, top=2) == ["step"] + micro + ["step.update"]  # the update is due

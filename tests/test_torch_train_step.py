@@ -33,6 +33,7 @@ from stemseg_tpu.training.step import make_loss_fn
 from stemseg_tpu.training.step import prepare_targets as jax_prepare_targets
 from stemseg_tpu_torch.config import load_config
 from stemseg_tpu_torch.models import build_model, state_dict_from_jax
+from stemseg_tpu_torch.training.loader import loader_batch, to_device
 from stemseg_tpu_torch.training.optim import make_optimizer, trainable_parameters
 from stemseg_tpu_torch.training.step import TrainStep, make_output_loss_fn, prepare_targets
 from test_torch_model import SMALL, random_variables
@@ -77,8 +78,11 @@ def make_batch(seed, n_inst=2, i_max=3, cats=None):
             "category_ids": category_ids}
 
 
-def torch_batch(batch):
-    return {k: torch.from_numpy(v) for k, v in batch.items()}
+def torch_batch(batch, scale=4):
+    """``make_batch``'s arrays as the loader and ``to_device`` hand them to
+    the step (on the CPU), its kept instances found at the loss's
+    ``scale``."""
+    return to_device(loader_batch(batch, scale), torch.device("cpu"))
 
 
 class Setup:
@@ -266,10 +270,10 @@ def test_loss_at_full_res_and_remat():
         torch.manual_seed(0)
         for p in model.parameters():
             p.data.uniform_(-0.05, 0.05)
-        batch = torch_batch(make_batch(3))
+        batch = torch_batch(make_batch(3), scale=1)
         out = model(batch["images"].permute(0, 1, 4, 2, 3))
         assert out["embeddings"].shape == (1, 7, T, H, W)
-        total, _ = make_output_loss_fn(cfg)(out, batch)
+        total, _ = make_output_loss_fn(cfg, torch.device("cpu"))(out, batch)
         assert torch.isfinite(total)
         grads.append(torch.autograd.grad(total, trainable_parameters(model)))
     for a, b in zip(*grads):

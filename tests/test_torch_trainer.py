@@ -384,7 +384,7 @@ def test_loader_reraises_a_worker_error_and_joins_its_threads():
     seen = []
     with pytest.raises(KeyError, match="sample 5"):
         for batch in make_data_loader(Flaky(), [[i] for i in range(8)], max_instances=4,
-                                      num_workers=3):
+                                      scale=4, num_workers=3):
             seen.append(batch["images"].shape)
     assert seen == [(1, 2, 32, 32, 3)] * 5  # in sampler order up to the failing batch
     assert torch.is_tensor(batch["masks"]) and batch["masks"].dtype == torch.uint8
