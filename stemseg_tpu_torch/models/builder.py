@@ -114,7 +114,11 @@ class STEmSegModel(nn.Module):
         padded to /32): ``embeddings`` ``[N, E + V + 1, T, h, w]`` (channel
         order emb | var | seed) and ``semseg_masks`` ``[N, classes (+1), T,
         h, w]`` or None, at a quarter of the input size, or at full size
-        with ``loss_at_full_res``."""
+        with ``loss_at_full_res``.
+
+        ``TrainStep`` makes these two calls itself, with its span
+        ``step.backbone`` around the first: what this method adds to them
+        goes there too."""
         return self.clip_heads(self.clip_features(images))
 
     def clip_features(self, images: torch.Tensor) -> List[torch.Tensor]:

@@ -1,4 +1,6 @@
-"""ResNet-50/101 backbone body with FrozenBatchNorm.
+"""ResNet-50/101 and ResNeXt-101 (X-101-FPN: ``num_groups`` groups in the
+3x3, which carries the stride when ``stride_in_1x1`` is False) backbone
+body with FrozenBatchNorm.
 
 Module names are the reference state-dict keys (``stem.conv1``,
 ``layer{i}.{j}.conv{1,2,3}``, ``layer{i}.{j}.downsample.{0,1}``), so a

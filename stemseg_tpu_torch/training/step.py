@@ -32,10 +32,11 @@ FrozenBN and GroupNorm only: no batch statistics need syncing.
 
 Tracing (``utils.profiling``, while a profiler records): a micro-step is
 the span ``step`` (its id the micro-step's number, counted from 1) around
-``step.forward``, ``step.loss``, ``step.backward``, ``step.all_reduce``
-(with a process group), ``step.accumulate`` (the gradient's norm and its
-running mean) and ``step.update`` (when the update is due), each also
-timed on the CUDA stream.
+``step.forward`` (the model's ``forward``, as ``clip_features``, inside
+``step.backbone``, then ``clip_heads``), ``step.loss``, ``step.backward``,
+``step.all_reduce`` (with a process group), ``step.accumulate`` (the
+gradient's norm and its running mean) and ``step.update`` (when the update
+is due), each also timed on the CUDA stream.
 
 Batch contract (``training/loader.py``: ``to_device`` of a batch that
 ``collate_batch`` or ``loader_batch`` made): device tensors ``images``
@@ -229,7 +230,10 @@ class TrainStep:
         cuda = self.cuda
         with span("step", ident=self.calls):
             with span("step.forward", device=cuda):
-                out = self.model(batch["images"].permute(0, 1, 4, 2, 3))
+                # the model's forward, split to time its backbone
+                with span("step.backbone", device=cuda):
+                    feats = self.model.clip_features(batch["images"].permute(0, 1, 4, 2, 3))
+                out = self.model.clip_heads(feats)
             with span("step.loss", device=cuda):
                 total, metrics = self.loss_fn(out, batch)
             with span("step.backward", device=cuda):

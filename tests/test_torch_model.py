@@ -1,7 +1,8 @@
 """The port's model (ResNet body + FPN, embedding, seediness and semseg heads)
 against the JAX package's on the same weights, carried across with
 ``state_dict_from_jax``; and the exact round trip of that mapping through the
-JAX package's own checkpoint converter."""
+JAX package's own checkpoint converter. The same for the X-101-FPN body
+(ResNeXt: grouped 3x3s that carry the stride), with the youtube_vis heads."""
 
 import copy
 
@@ -83,14 +84,17 @@ def models():
     return jcfg, jmodel, variables, model
 
 
-def test_backbone_fpn_matches_jax(models):
+def _check_backbone_fpn(models):
+    """Body + FPN on 3 frames against the JAX package's ``ResNet`` and
+    ``FPN`` built from the same config."""
     jcfg, _, variables, model = models
     rng = np.random.RandomState(2)
     x = (rng.randn(3, 64, 96, 3) * 40).astype(np.float32)
     r = jcfg.model.resnets
-    body = JaxResNet(stage_specs=STAGE_SPECS["R-50-FPN"], width_per_group=r.width_per_group,
+    body = JaxResNet(stage_specs=STAGE_SPECS[jcfg.model.backbone.type],
+                     num_groups=r.num_groups, width_per_group=r.width_per_group,
                      stem_out_channels=r.stem_out_channels,
-                     res2_out_channels=r.res2_out_channels)
+                     res2_out_channels=r.res2_out_channels, stride_in_1x1=r.stride_in_1x1)
     feats = body.apply({"params": variables["params"]["body"],
                         "constants": variables["constants"]["body"]}, jnp.asarray(x))
     ref = JaxFPN(out_channels=r.backbone_out_channels).apply(
@@ -102,6 +106,10 @@ def test_backbone_fpn_matches_jax(models):
     for o, r_ in zip(out, ref):
         np.testing.assert_allclose(o.permute(0, 2, 3, 1).numpy(), np.asarray(r_),
                                    atol=ATOL, rtol=1e-4)
+
+
+def test_backbone_fpn_matches_jax(models):
+    _check_backbone_fpn(models)
 
 
 def test_full_forward_matches_jax(models):
@@ -150,6 +158,74 @@ def test_state_dict_round_trip_is_exact(models):
     assert "embedding_head.conv_16.weight" in sd
     assert "seediness_head.conv_out.weight" in sd
     assert sd["embedding_head.time_scale"].shape == ()
+    _assert_round_trip(model, variables)
+
+
+# SMALL with ``stemseg-ytvis-x101``'s body, X-101-FPN (3/4/23/3 bottlenecks
+# with the stride on the grouped 3x3), narrowed to 4 groups of 4 channels,
+# and youtube_vis's head layout: the seediness fused into the embedding
+# head, a semseg head
+X101_SMALL = copy.deepcopy(SMALL)
+X101_SMALL["input"]["num_classes"] = 4
+X101_SMALL["model"]["backbone"]["type"] = "X-101-FPN"
+X101_SMALL["model"]["resnets"].update(num_groups=4, width_per_group=4, stride_in_1x1=False)
+X101_SMALL["model"].update(use_seediness_head=False, use_semseg_head=True,
+                           semseg={"inter_channels": [32, 32, 16, 16], "gn_num_groups": 8})
+
+
+@pytest.fixture(scope="module")
+def x101_models():
+    jcfg = jax_load_config(X101_SMALL)
+    jmodel = jax_build_model(jcfg, for_training=False)
+    variables = random_variables(jmodel, (1, 4, 64, 96, 3), 11)
+    model = build_model(load_config(X101_SMALL), device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables))
+    return jcfg, jmodel, variables, model
+
+
+def test_x101_body_is_grouped_with_the_stride_on_the_3x3(x101_models):
+    """Every bottleneck's 3x3 has 4 groups; a stage's first one carries the
+    stride, its 1x1 none; the grouped kernel came across from JAX's
+    ``[3, 3, 8, 32]`` (in / groups, out)."""
+    _, _, variables, model = x101_models
+    body = model.backbone.body
+    assert [len(getattr(body, f"layer{i}")) for i in range(1, 5)] == [3, 4, 23, 3]
+    block = body.layer2[0]
+    assert block.conv1.stride == (1, 1) and block.conv2.stride == (2, 2)
+    assert all(b.conv2.groups == 4 for i in range(1, 5) for b in getattr(body, f"layer{i}"))
+    kernel = variables["params"]["body"]["layer2_0"]["conv2"]["conv"]["kernel"]
+    assert kernel.shape == (3, 3, 8, 32) and block.conv2.weight.shape == (32, 8, 3, 3)
+    np.testing.assert_array_equal(block.conv2.weight.detach().numpy(),
+                                  kernel.transpose(3, 2, 0, 1))
+
+
+def test_x101_backbone_fpn_matches_jax(x101_models):
+    _check_backbone_fpn(x101_models)
+
+
+def test_x101_full_forward_matches_jax(x101_models):
+    """The port's training forward of one 4-frame clip (backbone, then the
+    embedding head with its seediness channel and the semseg head) against
+    the JAX model's."""
+    _, jmodel, variables, model = x101_models
+    rng = np.random.RandomState(4)
+    clip = (rng.randn(1, 4, 64, 96, 3) * 40).astype(np.float32)
+    ref = jmodel.apply(variables, jnp.asarray(clip))
+
+    with torch.no_grad():
+        out = model(torch.from_numpy(clip).permute(0, 1, 4, 2, 3))
+    emb = out["embeddings"][0].permute(1, 2, 3, 0).numpy()
+    sem = out["semseg_masks"][0].permute(1, 2, 3, 0).numpy()
+    assert emb.shape == np.shape(ref["embeddings"])[1:] == (4, 16, 24, 4 + 2 + 1)
+    assert sem.shape == np.shape(ref["semseg_masks"])[1:] == (4, 16, 24, 4 + 1)
+    np.testing.assert_allclose(emb, np.asarray(ref["embeddings"])[0], atol=ATOL, rtol=1e-4)
+    np.testing.assert_allclose(sem, np.asarray(ref["semseg_masks"])[0], atol=ATOL, rtol=1e-4)
+
+
+def test_x101_state_dict_round_trip_is_exact(x101_models):
+    """The grouped kernels too: ``convert_state_dict`` of the port's state
+    reproduces the JAX tree."""
+    _, _, variables, model = x101_models
     _assert_round_trip(model, variables)
 
 

@@ -14,10 +14,12 @@ the kernels' launch counts on the fused path on a card.
   before's, back to back too; ``write_trace`` prints the totals and
   counters. On the CPU the fused path releases no cache (the card's
   release: ``test_torch_fused_release.py``) and keeps no ``fused.*``
-  counter, over a replaced state too.
+  counter, over a replaced state too. ``step.backbone`` is one span a
+  micro-step inside ``step.forward``, and none in a fused run.
 * On a card (``card``): a fused run's ``launch_counts`` equal the
   clustering and lsap kernels' launches in a profiler trace of the same
-  run, graph replays included, and the device spans read stream times.
+  run, graph replays included, and the device spans read stream times;
+  ``step.backbone``'s stream ms are at most ``step.forward``'s.
 
 Narrow R-50, windows of 4 frames of 64x96 (frames of 60x90 resized), no
 JAX: this file runs on the card too
@@ -220,7 +222,7 @@ def test_train_step_spans_names_order_parents_and_ids(step_session):
     records, _ = step_session
     # each micro-step's one sequence had its kept rows from the host
     assert records["counters"] == {"loss.host_selection": 2}
-    micro = ["step.forward", "step.loss", "step.backward", "step.accumulate"]
+    micro = ["step.forward", "step.backbone", "step.loss", "step.backward", "step.accumulate"]
     assert names(records, top=1) == ["step"] + micro
     assert names(records, top=2) == ["step"] + micro + ["step.update"]  # the update is due
     spans = records["spans"]
@@ -228,7 +230,23 @@ def test_train_step_spans_names_order_parents_and_ids(step_session):
         if s["name"] == "step":
             assert s["parent"] is None
         else:
-            assert spans[s["parent"]]["name"] == "step" and spans[s["parent"]]["top"] == s["top"]
+            parent = "step.forward" if s["name"] == "step.backbone" else "step"
+            assert spans[s["parent"]]["name"] == parent and spans[s["parent"]]["top"] == s["top"]
+
+
+def test_backbone_span_once_a_micro_step_inside_the_forward(step_session, fused_session):
+    """``step.backbone`` (the backbone and FPN of the clip's frames) is one
+    span a micro-step, within its ``step.forward``; the fused path, which
+    captures the backbone into graphs, keeps none."""
+    records, _ = step_session
+    spans = records["spans"]
+    backbone = [s for s in spans if s["name"] == "step.backbone"]
+    assert [s["top"] for s in backbone] == [1, 2]
+    for s in backbone:
+        forward = spans[s["parent"]]
+        assert forward["name"] == "step.forward"
+        assert forward["start_ns"] <= s["start_ns"] <= s["end_ns"] <= forward["end_ns"]
+    assert "step.backbone" not in names(fused_session[0])
 
 
 @pytest.mark.parametrize("which", ["fused_session", "step_session"])
@@ -345,3 +363,25 @@ def test_fused_launch_counts_equal_the_profiled_launches(cfg, tmp_path, card):
     assert len(streamed) == 2 + 2 * WINDOWS
     assert all(s["stream_ms"] is not None and s["stream_ms"] > 0 for s in streamed)
     assert all(s["stream_ms"] is None for s in records["spans"] if s not in streamed)
+
+
+@pytest.mark.card
+def test_backbone_stream_ms_within_the_forward(cfg, card):
+    """On the card ``step.backbone`` reads stream ms, at most its
+    ``step.forward``'s, once a micro-step."""
+    model = build_model(cfg, device="cuda", for_training=True)
+    init_random_weights(model, 3)
+    optimizer, scheduler = make_optimizer(cfg.training, trainable_parameters(model))
+    step = TrainStep(model, cfg, optimizer, scheduler, accumulate_steps=2)
+    step(batch(0, device="cuda"))  # cuDNN's first calls before the session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        step(batch(1, device="cuda"))
+        step(batch(2, device="cuda"))
+        torch.cuda.synchronize()
+    spans = profiling.last_session()["spans"]
+    backbone = [s for s in spans if s["name"] == "step.backbone"]
+    assert len(backbone) == 2
+    for s in backbone:
+        forward = spans[s["parent"]]
+        assert forward["name"] == "step.forward"
+        assert 0 < s["stream_ms"] <= forward["stream_ms"]

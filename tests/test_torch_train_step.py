@@ -11,9 +11,11 @@ batches:
   2): the parameter deltas against JAX's ``optax.MultiSteps`` within 2e-3
   per leaf, for SGD (with a step LR decay inside the run) and for Adam with
   clipping; frozen stem and ``layer1`` bit-unchanged;
-* ``freeze_backbone`` and the LR schedules against the JAX package's.
+* ``freeze_backbone`` and the LR schedules against the JAX package's;
+* one micro-step the same on the X-101-FPN body (4 groups of 4 channels,
+  the stride on the grouped 3x3): its grouped kernels' gradients too.
 
-The JAX side compiles one value-and-grad of the step for this file."""
+The JAX side compiles one value-and-grad of the step for each body."""
 
 import copy
 
@@ -50,6 +52,9 @@ DAVIS_SMALL["training"].update(batch_size=2, max_samples_per_chip=1, optimizer="
                                initial_lr=0.01, lr_decay_type="step",
                                lr_decay_steps=[2], lr_decay_factor=0.1,
                                weight_decay=1e-4)
+X101_SMALL = copy.deepcopy(DAVIS_SMALL)
+X101_SMALL["model"]["backbone"]["type"] = "X-101-FPN"
+X101_SMALL["model"]["resnets"].update(num_groups=4, width_per_group=4, stride_in_1x1=False)
 ADAM_CLIP = {"training": {"optimizer": "Adam", "initial_lr": 1e-3, "clip_gradients": True}}
 
 
@@ -157,11 +162,18 @@ def check_gradients(model, jgrads, params_named):
     return worst
 
 
-def test_one_micro_step_matches_jax(davis):
-    batch = make_batch(0)
-    jmetrics, jgrads = davis.jax_step(davis.variables["params"], batch)
+@pytest.fixture(scope="module")
+def x101():
+    return Setup(X101_SMALL, variables_seed=3)
 
-    cfg, model = davis.torch_model()
+
+def check_one_micro_step(setup):
+    """One micro-step (no update yet) of the port on ``setup``'s weights:
+    its loss terms, gradients and ``grad_norm`` against JAX's."""
+    batch = make_batch(0)
+    jmetrics, jgrads = setup.jax_step(setup.variables["params"], batch)
+
+    cfg, model = setup.torch_model()
     opt, sched = make_optimizer(cfg.training, trainable_parameters(model))
     step = TrainStep(model, cfg, opt, sched, accumulate_steps=2)  # no update yet
     metrics = step(torch_batch(batch))
@@ -172,6 +184,17 @@ def test_one_micro_step_matches_jax(davis):
     check_gradients(model, jgrads, list(model.named_parameters()))
     np.testing.assert_allclose(float(metrics["grad_norm"]), float(optax.global_norm(jgrads)),
                                rtol=LOSS_RTOL)
+    return model
+
+
+def test_one_micro_step_matches_jax(davis):
+    check_one_micro_step(davis)
+
+
+def test_x101_one_micro_step_matches_jax(x101):
+    model = check_one_micro_step(x101)
+    grouped = model.backbone.body.layer3[0].conv2
+    assert grouped.groups == 4 and grouped.stride == (2, 2) and grouped.weight.grad.any()
 
 
 @pytest.mark.parametrize("optimizer", ["sgd", "adam_clip"])
